@@ -97,6 +97,114 @@ def _j(*arrays):
     return tuple(jnp.asarray(a) for a in arrays)
 
 
+def _tied_rows(u, d, rng):
+    """Integer rows with tied runs (values drawn per row from [-r, r],
+    r in {1, 4, 2D}), zeros of both signs, integer weights 1..3 with
+    ~30% zero-weight holes, and the edge rows (empty, single point,
+    full, whole-row tie).  Every sum is exact."""
+    r = rng.choice([1, 4, 2 * d], (u, 1))
+    m = rng.integers(-r, r + 1, (u, d)).astype(np.float32)
+    m = np.where((m == 0) & (rng.random((u, d)) < 0.5), np.float32(-0.0),
+                 m).astype(np.float32)
+    w = ((rng.random((u, d)) < 0.7)
+         * rng.integers(1, 4, (u, d))).astype(np.float32)
+    w[0, :] = 0.0
+    w[1, :] = 0.0
+    w[1, d // 2] = 3.0
+    w[2, :] = 1.0
+    m[3, :] = 7.0
+    occ = w > 0
+    has = occ.any(axis=1)
+    dmin = np.where(has, np.where(occ, m, np.inf).min(1), 0.0)
+    dmax = np.where(has, np.where(occ, m, -np.inf).max(1), 0.0)
+    pct = np.arange(33, dtype=np.float32) / 32
+    return (m, w, dmin.astype(np.float32), dmax.astype(np.float32), pct)
+
+
+@pytest.mark.parametrize("d", [2, 16, 64, 512])
+def test_b1_plain_is_the_stable_order_of_the_jax_twin(d):
+    """The order B1's packed-word network reproduces on the card: tied
+    values keep their column order and -0 sorts as +0, so a quantile
+    that straddles a tied run of unequal weights, or a run of zeros of
+    both signs, is the JAX twin's (`lax.sort`, stable) bit for bit.  The
+    sum column by value: its sign on an all-zero row depends on where
+    the summation starts."""
+    rng = np.random.default_rng(9000 + d)
+    args = _tied_rows(64, d, rng)
+    got = se.weighted_eval(*_t(*args)).numpy()
+    twin = np.asarray(jtd.weighted_eval(*_j(*args)))
+    n = len(args[4])
+    np.testing.assert_array_equal(got[:, :n + 1].view(np.int32),
+                                  twin[:, :n + 1].view(np.int32))
+    np.testing.assert_array_equal(got[:, n + 1], twin[:, n + 1])
+    m, w = args[0], args[1]
+    zero = (m == 0) & (w > 0)
+    assert (zero & np.signbit(m)).any() and (zero & ~np.signbit(m)).any()
+
+
+def _sort_word(v, w, col):
+    """`sort_word` of `ops/csrc/sort_network.cuh` in numpy: the key (v
+    where w > 0, else +inf; -0 as +0; any NaN above +inf) through the
+    monotone IEEE map in the high 32 bits, the column in the low 32."""
+    b = np.where(w > 0, v, np.float32(np.inf)).astype(np.float32)
+    b = b.view(np.uint32).copy()
+    b[b == 0x80000000] = 0
+    b[(b & 0x7FFFFFFF) > 0x7F800000] = 0x7FFFFFFF
+    key = np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint64)
+    return (key << np.uint64(32)) | col.astype(np.uint64)
+
+
+def test_packed_words_sort_in_the_plain_versions_stable_order():
+    """Sorting B1's words is the plain version's stable sort of the
+    keys, on ties, zeros of both signs, holes, negative weights,
+    infinities and NaN values (both sort last, after the holes, in
+    column order), so the kernel's order is the plain version's on
+    every row."""
+    rng = np.random.default_rng(31)
+    u, d = 256, 32
+    m, w = _tied_rows(u, d, rng)[:2]
+    special = np.array([np.nan, -np.nan, np.inf, -np.inf], np.float32)
+    pick = rng.random((u, d)) < 0.1
+    m = np.where(pick, special[rng.integers(0, 4, (u, d))], m)
+    m = m.astype(np.float32)
+    w = np.where(rng.random((u, d)) < 0.05, np.float32(-1.0), w)
+    col = np.broadcast_to(np.arange(d), (u, d))
+    order = np.argsort(_sort_word(m, w, col), axis=1)
+    key = torch.where(torch.from_numpy(w) > 0, torch.from_numpy(m),
+                      torch.tensor(float("inf")))
+    want = torch.sort(key, dim=1, stable=True).indices.numpy()
+    np.testing.assert_array_equal(order, want)
+
+
+def _rank_uniform(n, d, tq):
+    """`rank_uniform` of `ops/csrc/sorted_eval.cu` in Python: B2's
+    closed-form count of the cmids (c + 0.5 for c < n, 3e38 after) below
+    tq."""
+    x = float(tq) - 0.5
+    rank = 0 if not x > 0.0 else (n if x >= n else int(np.ceil(x)))
+    return rank + (d - n if np.float32(3.0e38) < tq else 0)
+
+
+def test_b2_closed_form_rank_is_the_count():
+    """B2's tail takes the rank in closed form; it must be the plain
+    version's count #{cmid < tq} on every tq, half-integers (where a
+    cmid equals tq) and non-finite values included."""
+    d = 64
+    for n in (0, 1, 2, 3, 17, 63, 64):
+        cmid = np.where(np.arange(d) < n, np.arange(d) + 0.5,
+                        3.0e38).astype(np.float32)
+        tqs = np.concatenate([
+            np.arange(-1.0, n + 2.0, 0.5, dtype=np.float32),
+            np.nextafter(np.arange(0.5, n + 1.0, 1.0, dtype=np.float32),
+                         np.float32(np.inf)),
+            np.nextafter(np.arange(0.5, n + 1.0, 1.0, dtype=np.float32),
+                         np.float32(-np.inf)),
+            np.array([np.nan, np.inf, -np.inf, 3.0e38, 3.4e38],
+                     np.float32)])
+        for tq in tqs:
+            assert _rank_uniform(n, d, tq) == int((cmid < tq).sum()), (n, tq)
+
+
 @pytest.mark.parametrize("u,d", [(256, 4), (128, 8), (64, 64), (5, 2)])
 def test_b1_plain_bitwise_on_integer_rows(u, d):
     rng = np.random.default_rng(1000 + d)
@@ -141,10 +249,9 @@ def test_b1_plain_close_on_fractional_weights():
 
 
 def test_b1_plain_tied_rows_agree_on_totals():
-    """Tied values: a stable sort and an unstable one may order a tied
-    run differently, but totals, sums and quantiles that do not straddle
-    the run agree (here the sort is stable on both sides, so all of
-    them do)."""
+    """Tied values: both sides sort stably (as the kernel does), so
+    totals, sums and every quantile agree, also those that straddle a
+    tied run."""
     rng = np.random.default_rng(7)
     u, d = 64, 16
     m = rng.integers(0, 4, (u, d)).astype(np.float32)

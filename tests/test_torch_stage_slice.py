@@ -95,6 +95,31 @@ def test_h1_plain_holes_nan_in_the_same_places(mode, d):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("integer", [True, False])
+def test_h1_plain_sort_cut_is_the_stable_order(integer):
+    """The sort cut sums key * w over rows sorted as B1 sorts them:
+    stably, tied keys in column order, each keeping its own weight.  On
+    rows of tied runs with unequal weights (integer, or gamma floats
+    drawn with replacement) it is the fixed pairwise tree over numpy's
+    stable sort, bit for bit."""
+    rng = np.random.default_rng(77)
+    u, d = 64, 32
+    if integer:
+        vals = rng.integers(-3, 4, (u, d)).astype(np.float32)
+    else:
+        pool = rng.gamma(2.0, 10.0, (u, d)).astype(np.float32)
+        vals = np.take_along_axis(pool, rng.integers(0, d, (u, d)), axis=1)
+    wts = rng.integers(1, 4, (u, d)).astype(np.float32)
+    order = np.argsort(vals, axis=1, kind="stable")
+    prod = (np.take_along_axis(vals, order, axis=1)
+            * np.take_along_axis(wts, order, axis=1))
+    want = se.tree_row_sums(torch.from_numpy(prod)).numpy()
+    got = se.stage_slice_plain(torch.from_numpy(vals), torch.from_numpy(wts),
+                               "sort").numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert (np.diff(np.sort(vals, axis=1), axis=1) == 0).any()
+
+
 def _wide_args(u=128, d=16, n_pct=3):
     vals, wts = _rows(u, d, 4, False, True)
     t = [torch.from_numpy(x) for x in (vals, wts)]

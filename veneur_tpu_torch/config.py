@@ -60,13 +60,12 @@ class Config:
     set_arena_initial_capacity: int = 0
     # device mesh of the meshed flush (parallel/mesh.py): mesh_devices
     # devices (0: one device, unmeshed) as (shard, replica);
-    # mesh_replicas 0 = auto (2 when the device count is even), else a
-    # power of two dividing it.  ingest_lanes is accepted as the JAX
-    # package accepts it and has no effect (its digest staging has no
-    # ingest lanes either).  The t-digest, set, counter and
+    # mesh_replicas 0 = auto (2 when the device count is even), else any
+    # count dividing it.  ingest_lanes is accepted as the JAX package
+    # accepts it and has no effect (its digest staging has no ingest
+    # lanes either).  The t-digest, moments, set, counter and
     # unique-timeseries families run meshed; the compactor family
-    # refuses a mesh and the moments family's meshed solve is not
-    # ported
+    # refuses a mesh (check_mesh_families)
     mesh_devices: int = 0
     mesh_replicas: int = 0
     ingest_lanes: int = 0

@@ -4,15 +4,23 @@
 // so a cut or a variant can never time a stale copy of a production
 // stage.
 //
-// A CTA holds kBlockPoints points in shared memory: 1024 / D rows of D
-// points each, D a power of two in [2, 1024].  Unless a function says
-// otherwise it expects kThreads threads, one compare-exchange each.
+// Two families.  The block functions (load_pairs, bitonic_rows,
+// scan_rows, row_sums) keep a CTA's kBlockPoints points in shared
+// memory, 1024 / D rows of D points each, D a power of two in [2, 1024],
+// and expect kThreads threads, one compare-exchange each, with a
+// __syncthreads a stage: B3, B4 and H3 run them.  The warp functions
+// (stage_chunk, warp_bitonic, sorted_pairs, warp_scan, warp_tree_sum)
+// are B1's, B2's and H1/H2's: each warp of a CTA works alone on a chunk
+// of 32 E points held in registers (see lane_points), with no barrier
+// but __syncwarp.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -24,9 +32,9 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// B1's load of a CTA's block: key = value where the weight is positive,
-// else +inf (a hole sorts last); w = the weight, 0 past the last row.
-// Any number of threads.
+// H3's load of a CTA's block (v0, v1): key = value where the weight is
+// positive, else +inf (a hole sorts last); w = the weight, 0 past the
+// last row.  Any number of threads.
 template <typename T>
 __device__ void load_pairs(const T* __restrict__ mean,
                            const float* __restrict__ weight, float* key,
@@ -70,11 +78,10 @@ __device__ void bitonic_rows(float* key, float* w, int d) {
   }
 }
 
-// Hillis-Steele inclusive scan inside each D-long row of a[] (and, with
-// kTwo, of b[] in the same steps): exact for integer weights below
-// 2^24.  The caller has a barrier behind its last write of a/b; the
-// scan ends with one.
-template <bool kTwo>
+// B4's Hillis-Steele inclusive scan inside each D-long row of a[] and
+// of b[], in the same steps: exact for integer weights below 2^24.  The
+// caller has a barrier behind its last write of a/b; the scan ends with
+// one.
 __device__ void scan_rows(float* a, float* b, int d) {
   const int t = threadIdx.x;
   for (int s = 1; s < d; s <<= 1) {
@@ -83,13 +90,13 @@ __device__ void scan_rows(float* a, float* b, int d) {
       const int e = t + h * kThreads;
       const bool take = (e & (d - 1)) >= s;
       xa[h] = take ? a[e - s] : 0.0f;
-      if constexpr (kTwo) xb[h] = take ? b[e - s] : 0.0f;
+      xb[h] = take ? b[e - s] : 0.0f;
     }
     __syncthreads();
     for (int h = 0; h < 2; ++h) {
       const int e = t + h * kThreads;
       a[e] = __fadd_rn(a[e], xa[h]);
-      if constexpr (kTwo) b[e] = __fadd_rn(b[e], xb[h]);
+      b[e] = __fadd_rn(b[e], xb[h]);
     }
     __syncthreads();
   }
@@ -160,6 +167,283 @@ __device__ void compact_network(unsigned word[2], int d) {
 int blocks_for(int u, int d) {
   const int rows = kBlockPoints / d;
   return (u + rows - 1) / rows;
+}
+
+// ---------------------------------------------------------------------------
+// The warp functions: B1, B2 and the stage cuts H1/H2
+// ---------------------------------------------------------------------------
+//
+// A warp holds a chunk of 32 E consecutive points of the row-major
+// [U, D] operands, whole rows of D points: lane l holds the chunk's
+// points l E .. l E + E - 1 in registers.  E divides D (lane_points),
+// so a row spans L = D / E <= 32 whole lanes and no lane holds points
+// of two rows; strides below E stay inside a lane.  Each warp stages
+// its chunk in shared memory of its own and takes one chunk, so the
+// warps of a CTA never wait for each other, and as CTAs finish and new
+// ones start, the loads of some overlap the sorts of others.
+
+constexpr int kWarps = 4;                     // warps per CTA
+constexpr int kWarpThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// E, the points a lane holds in rows of depth d: the most the registers
+// take (32) where a row spans at least two lanes, else a row a lane
+// (D <= 8) or two (D = 16, 32), which the card's times favour.
+inline int lane_points(int d) {
+  return d <= 8 ? d : (d <= 32 ? d / 2 : 32);
+}
+
+// The CTAs of kWarps warps whose chunks of 32 e points cover u rows of d.
+inline int warp_blocks(int u, int d, int e) {
+  const long points = 32L * e * kWarps;
+  return static_cast<int>((static_cast<long>(u) * d + points - 1) / points);
+}
+
+// A warp's staging in shared memory holds chunk point p at slot(p): one
+// pad word after every 32 points, so the points a lane reads in turn
+// (l E + r for r < E) and the 32 points of a coalesced step lie in
+// different banks.  kStaging<E> words hold a chunk.
+__device__ __forceinline__ int slot(int p) { return p + (p >> 5); }
+template <int E>
+constexpr int kStaging = 33 * E;
+
+// Calls f(std::integral_constant<int, E>) for the E of rows of depth d
+// (a power of two in [2, 1024]); cudaErrorInvalidValue for another d.
+template <typename F>
+int with_lane_points(int d, F&& f) {
+  if (d < 2 || d > 1024 || (d & (d - 1)) != 0) return cudaErrorInvalidValue;
+  switch (lane_points(d)) {
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Stages a warp's chunk, the points [base, base + 32 E) of the [U, D]
+// operands, in its shared memory: sv[slot(i)] the value of point
+// base + i widened to f32, sw[slot(i)] its weight, both 0 from `limit`
+// (the end of the last row) on.  A lane loads 16 bytes of an operand at
+// a time, the lanes of the warp on neighbouring addresses; a chunk that
+// ends past `limit` or does not start on a 16-byte boundary loads point
+// by point.  The caller __syncwarp()s before a lane reads another
+// lane's points.
+template <int E, typename T>
+__device__ void stage_chunk(const T* __restrict__ mean,
+                            const float* __restrict__ weight, float* sv,
+                            float* sw, long base, long limit, int lane) {
+  constexpr int kN = 32 * E;                       // points of the chunk
+  constexpr int kPerVec = 16 / sizeof(T);          // values a load
+  constexpr int kW = (kN / 4 + 31) / 32;           // weight loads a lane
+  constexpr int kV = (kN / kPerVec + 31) / 32;     // value loads a lane
+  const T* m = mean + base;
+  const float* w = weight + base;
+  const bool aligned = ((reinterpret_cast<size_t>(m) |
+                         reinterpret_cast<size_t>(w)) & 15) == 0;
+  if (base + kN <= limit && aligned) {
+    // loads of global memory and stores to shared memory cannot alias,
+    // so the unrolled loops issue every load before the first store;
+    // the 4 or 8 points of a load never straddle a pad word
+    const float4* w4 = reinterpret_cast<const float4*>(w);
+    const uint4* m4 = reinterpret_cast<const uint4*>(m);
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      const int i = lane + 32 * k;
+      if (i >= kN / 4) continue;
+      const float4 x = __ldg(w4 + i);
+      float* dst = sw + slot(4 * i);
+      dst[0] = x.x;
+      dst[1] = x.y;
+      dst[2] = x.z;
+      dst[3] = x.w;
+    }
+#pragma unroll
+    for (int k = 0; k < kV; ++k) {
+      const int i = lane + 32 * k;
+      if (i >= kN / kPerVec) continue;
+      const uint4 b = __ldg(m4 + i);
+      float* dst = sv + slot(kPerVec * i);
+      if constexpr (sizeof(T) == 4) {
+        dst[0] = __uint_as_float(b.x);
+        dst[1] = __uint_as_float(b.y);
+        dst[2] = __uint_as_float(b.z);
+        dst[3] = __uint_as_float(b.w);
+      } else {
+        // a bf16 widens to the f32 whose top half it is; the value at
+        // the lower address is the low half of its 32-bit word
+        const unsigned h[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          dst[2 * c] = __uint_as_float(h[c] << 16);
+          dst[2 * c + 1] = __uint_as_float(h[c] & 0xFFFF0000u);
+        }
+      }
+    }
+  } else {
+    for (int i = lane; i < kN; i += 32) {
+      float v = 0.0f, ww = 0.0f;
+      if (base + i < limit) {
+        v = widen(m[i]);
+        ww = w[i];
+      }
+      sv[slot(i)] = v;
+      sw[slot(i)] = ww;
+    }
+  }
+}
+
+// One compare-exchange of bitonic_rows' rule: the pair swaps only when
+// its lower point is strictly greater (ascending) or strictly less
+// (descending), so equal keys never move.
+template <typename K>
+__device__ __forceinline__ void exchange(K& lo, K& hi, bool asc) {
+  const K a = lo;
+  const K b = hi;
+  const bool swap = asc ? (a > b) : (a < b);
+  lo = swap ? b : a;
+  hi = swap ? a : b;
+}
+
+// Ascending bitonic sort of every D-long row of a warp's chunk, x[r]
+// being the lane's point l E + r: strides below E compare inside the
+// lane, the others exchange with lane l ^ (j / E) by shuffles.  It makes
+// bitonic_rows' exchanges on the same keys (exchange's rule).  The
+// merges of runs shorter than E lie inside a lane, with directions
+// known at compile time; from k = E on, a merge has one direction for
+// all of a lane's points.
+template <int E, typename K>
+__device__ void warp_bitonic(K (&x)[E], int d, int lane) {
+#pragma unroll
+  for (int k = 2; k < E; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        if ((r & j) == 0) exchange(x[r], x[r | j], (r & k) == 0);
+      }
+    }
+  }
+  const int first = (lane * E) & (d - 1);    // column of x[0] in its row
+  for (int k = E; k <= d; k <<= 1) {
+    const bool asc = (first & k) == 0;
+    for (int j = k >> 1; j >= E; j >>= 1) {
+      const bool lower = (lane & (j / E)) == 0;
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        const K other = __shfl_xor_sync(kFull, x[r], j / E);
+        const K lo = lower ? x[r] : other;
+        const K hi = lower ? other : x[r];
+        if (asc ? (lo > hi) : (lo < hi)) x[r] = other;
+      }
+    }
+#pragma unroll
+    for (int j = E >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        if ((r & j) == 0) exchange(x[r], x[r | j], asc);
+      }
+    }
+  }
+}
+
+// B1's sort word: the f32 key's bits through the monotone IEEE map
+// (negatives flip every bit, positives set the sign bit) in the high 32
+// bits and the point's column in the low ones, so the unsigned order of
+// the words is (key ascending, column ascending) and the words of a row
+// are distinct: sorting them is a stable sort of the keys.  A hole
+// (w <= 0) keys +inf; -0 keys as +0 (the plain version's stable sort
+// holds them equal, so the column decides); every NaN keys above +inf,
+// where torch.sort puts NaN.
+__device__ __forceinline__ unsigned long long sort_word(float v, float w,
+                                                        int col) {
+  unsigned b = w > 0.0f ? __float_as_uint(v) : 0x7F800000u;
+  if (b == 0x80000000u) b = 0u;
+  if ((b & 0x7FFFFFFFu) > 0x7F800000u) b = 0x7FFFFFFFu;
+  const unsigned key = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return (static_cast<unsigned long long>(key) << 32) |
+         static_cast<unsigned>(col);
+}
+
+// B1's sort of a staged chunk (stage_chunk, then __syncwarp): each lane
+// packs its E words, warp_bitonic sorts them, and each sorted word's
+// column gathers its point's staged value and weight (the staged value,
+// not the key, so a -0 stays -0).  v[r], w[r] are then the lane's
+// points in sorted order.  Ends with a __syncwarp, after which the
+// staging may be overwritten.
+template <int E>
+__device__ void sorted_pairs(const float* sv, const float* sw, int d,
+                             int lane, float (&v)[E], float (&w)[E]) {
+  const int p0 = lane * E;
+  unsigned long long word[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int at = slot(p0 + r);
+    word[r] = sort_word(sv[at], sw[at], (p0 + r) & (d - 1));
+  }
+  warp_bitonic<E>(word, d, lane);
+  const int row = p0 & ~(d - 1);
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int src =
+        slot(row + static_cast<int>(static_cast<unsigned>(word[r])));
+    v[r] = sv[src];
+    w[r] = sw[src];
+  }
+  __syncwarp();
+}
+
+// Inclusive prefix sums along each row of a warp's chunk, x[r] being the
+// lane's point l E + r: each lane adds up its own E points in order,
+// a Hillis-Steele scan over the row's L = D / E lanes adds up their
+// totals, and every lane but the row's first adds the total of the
+// lanes before it to each of its points.  The order of the adds depends
+// on D alone; exact for integer weights below 2^24.
+template <int E>
+__device__ void warp_scan(float (&x)[E], int d, int lane) {
+#pragma unroll
+  for (int r = 1; r < E; ++r) x[r] = __fadd_rn(x[r - 1], x[r]);
+  const int lanes = d / E;
+  const int pos = lane & (lanes - 1);
+  float run = x[E - 1];
+  for (int s = 1; s < lanes; s <<= 1) {
+    const float y = __shfl_up_sync(kFull, run, s);
+    if (pos >= s) run = __fadd_rn(y, run);
+  }
+  const float before = __shfl_up_sync(kFull, run, 1);
+  if (pos > 0) {
+#pragma unroll
+    for (int r = 0; r < E; ++r) x[r] = __fadd_rn(before, x[r]);
+  }
+}
+
+// The sum of x over the `lanes` lanes of a row, in every one of them.
+__device__ __forceinline__ int row_lanes_sum(int x, int lanes) {
+  for (int s = 1; s < lanes; s <<= 1) x += __shfl_xor_sync(kFull, x, s);
+  return x;
+}
+
+// The sum of each row of a warp's chunk by row_sums' fixed pairwise
+// tree (at step s = D/2, ..., 1 column c < s adds column c + s), left in
+// x[0] of the row's first lane.
+template <int E>
+__device__ void warp_tree_sum(float (&x)[E], int d) {
+  for (int s = d >> 1; s >= E; s >>= 1) {
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      x[r] = __fadd_rn(x[r], __shfl_down_sync(kFull, x[r], s / E));
+    }
+  }
+  // inner trip counts fixed at E / 2, so both loops unroll and x stays
+  // in registers
+#pragma unroll
+  for (int s = E >> 1; s > 0; s >>= 1) {
+#pragma unroll
+    for (int r = 0; r < E / 2; ++r) {
+      if (r < s) x[r] = __fadd_rn(x[r], x[r + s]);
+    }
+  }
 }
 
 }  // namespace

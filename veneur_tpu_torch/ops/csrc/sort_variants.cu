@@ -11,9 +11,10 @@
 // The TPU's variants differ in how a stage finds its partner (roll,
 // flip, concatenated slices) and in the shape of its masks; none of that
 // has a meaning on Hopper.  Each mode keeps the idea it carries:
-//   0 (v0)      the paired network as B1 runs it: shared memory, one
-//               __syncthreads a stage, a conditional swap
-//               (sort_network.cuh bitonic_rows<true>);
+//   0 (v0)      the paired network in shared memory: one __syncthreads
+//               a stage, a conditional swap moving a key and a weight
+//               (sort_network.cuh bitonic_rows<true>; B1's formulation
+//               before B1 moved to packed words in registers);
 //   1 (v1, v2)  the min/max + moved-mask stage of sorted_eval.py:176-195:
 //               branch-free selects, every slot written, still in
 //               shared memory with one barrier a stage;

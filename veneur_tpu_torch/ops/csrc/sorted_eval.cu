@@ -1,5 +1,5 @@
 // Sorted evaluation of the interval flush: per-row sort, prefix sums and
-// Hazen midpoint quantiles, one CTA per block of rows.
+// Hazen midpoint quantiles.
 //
 // The kernels, each the Hopper counterpart of a Pallas TPU kernel in
 // veneur_tpu/ops/sorted_eval.py:
@@ -22,22 +22,22 @@
 //     (_kernel_uniform -> _tile_uniform, :397-430, same pallas_call
 //     sites as B1), the meshed flush's network for intervals whose every
 //     nonzero weight is 1: B1's operands and [U, P+2] output, but the
-//     sort moves keys only (B3's network); occupancy is w > 0 anywhere
-//     in the row, a sorted point i sits at cumulative weight i + 1
-//     (cmid i + 0.5), the total is the occupied count, and the tail
-//     clamps to [min, max] as B1's does.  float32 values only.
+//     sort moves keys only; occupancy is w > 0 anywhere in the row, a
+//     sorted point i sits at cumulative weight i + 1 (cmid i + 0.5), the
+//     total is the occupied count, and the tail clamps to [min, max] as
+//     B1's does.  float32 values only.
 //   vn_stage_slice (H1) replaces stage_slice_kernel (:738), the
 //     profiling cuts of B1 that bench.py:560 and
 //     scripts/profile_flush_kernel.py:102 launch: [U, D] f32 values +
 //     weights -> [U] f32, one per row.  Cut `read`: B1's load and
 //     sum(key * w) over the row (key = value where w > 0, else +inf, so
 //     a row with a hole gives NaN, as on the TPU); `sort`: the same sum
-//     after B1's paired network; `cumsum`: the last column of B1's
-//     inclusive prefix of the sorted weights (the total weight).  Built
-//     from B1's own load, network and scan (sort_network.cuh), so the
-//     cuts cannot time a stale formulation; it exists to split B1's
-//     time into load, network, scan and tail.  Bounded by bytes:
-//     (2 U D 4 + U 4) / 3.35 TB/s.
+//     after B1's sort; `cumsum`: the last column of B1's inclusive
+//     prefix of the sorted weights (the total weight).  Built from B1's
+//     own load, sort and scan (sort_network.cuh), so the cuts cannot
+//     time a stale formulation; it exists to split B1's time into load,
+//     network, scan and tail.  Bounded by bytes: (2 U D 4 + U 4) /
+//     3.35 TB/s.
 //   vn_stage_slice_wide (H2) is the definition of the `_variant_kernel`
 //     that scripts/profile_kernel_inloop.py:38 imports and no module
 //     defines (ROADMAP C7): the `read` (its mode `dma`) or `sort` cut
@@ -52,16 +52,39 @@
 // What bounds them.  Bytes: B1 and B2 read U*D*(4 or 2) values + U*D*4
 // weights + U*8 (min, max) and write U*(P+2)*4; B3 reads U*D*(4 or 2) + U*2
 // (int16 depths) and writes U*P*4.  Work: the bitonic network is
-// U*D*log2(D)*(log2(D)+1)/4 compare-exchanges, plus O(U*D*P) rank
-// compares in the tail.  At the flush's shapes (D <= 64 for most keys)
-// the bytes dominate: 3.35 TB/s moves a 131072 x 64 B1 input in ~20 us,
-// while the ~88M compare-exchanges take ~1.3 us at the card's 67 TFLOP/s
-// f32 rate.  The design therefore touches each input byte once: a CTA
-// loads a contiguous block of 1024 points (rows_per_cta = 1024 / D rows,
-// so shallow rows do not leave most of the threads idle), keeps the
-// whole sort, scan and tail in shared memory, and writes only the
-// output row.  Nothing here is tuned yet (no cp.async/TMA prefetch of
-// the next block, one thread per (row, percentile) in the tail).
+// U*D*log2(D)*(log2(D)+1)/4 compare-exchanges, plus the tail's rank
+// searches.  At the flush's shapes the bytes bound them on paper:
+// 3.35 TB/s moves a 131072 x 64 B1 input in ~20 us, while the ~88M
+// compare-exchanges take ~1.3 us at the card's 67 TFLOP/s f32 rate.  In
+// practice a network in shared memory is bound by its barriers and its
+// shared-memory traffic, so B1, B2 and the cuts keep their points in
+// registers (the warp functions of sort_network.cuh):
+//   * each warp works alone on a chunk of 32 E points, whole rows, with
+//     no CTA barrier; its loads are 16-byte vectors on neighbouring
+//     addresses into a staging of its own (padded against bank
+//     conflicts, slot), and many warps a SM (4 a CTA) keep loads in
+//     flight while others sort.  The per-row arithmetic does not depend
+//     on the chunk or the CTA, so the output bytes are the same for any
+//     number of rows a CTA takes (the JAX kernel's tiling-invariance
+//     contract);
+//   * B1 sorts one 64-bit word a point, key and column (sort_word), so
+//     a stage moves 8 bytes a point instead of a key and a weight, and
+//     the network is stable: tied values keep their column order, as in
+//     the plain version's stable sort, and every quantile is the plain
+//     version's bit for bit on tied rows too.  The sorted columns then
+//     gather each point's staged value and weight;
+//   * the prefix sums run in registers (warp_scan), and the tail finds
+//     each rank #{cmid < tq} by binary search over the row's cmid in
+//     shared memory (log2(D) + 1 reads instead of D).  cmid is
+//     non-decreasing along a row whenever its weights are finite and
+//     not negative; B1 checks every row and counts the rank point by
+//     point on a row where it is not, so a negative or NaN weight keeps
+//     the plain version's count;
+//   * B2 sorts the f32 keys alone (B3's key-only network, the same
+//     compare rule as B1's network, so ±0 keys order as bitonic_rows
+//     orders them), and its rank has a closed form (rank_uniform).
+// B3 and B4 keep their block formulation (shared memory, one barrier a
+// stage) and the point-by-point rank count.
 //
 // Numerics match the plain PyTorch version (sketches/tdigest.py
 // weighted_eval) bit for bit on data whose sums are exact: the two
@@ -70,11 +93,11 @@
 // (__fdiv_rn, no fast math), and the library is built with -fmad=false
 // so no other add or multiply contracts either.  The rank is the count
 // #{cmid < tq} over the whole row, padding included, as the plain
-// version computes it.  B1's bitonic network is not stable: tied values
-// may swap, but a weight always moves with its value.  B4's is: see
-// compact_word below.  B2 runs B1's comparisons on the same keys and
-// B1's scan for the weighted sum, so on weights in {0, 1} it gives B1's
-// bits, the contract of _tile_uniform (sorted_eval.py:408-412).
+// version computes it.  B1's and B4's networks are stable (their sort
+// words carry the column); B3's and B2's move keys alone, where a tie
+// is one value.  B2 sorts the keys B1 sorts and adds its sorted values
+// with B1's scan, so on weights in {0, 1} it gives B1's bits, the
+// contract of _tile_uniform (sorted_eval.py:408-412).
 
 #include "sort_network.cuh"
 
@@ -83,43 +106,115 @@ namespace {
 constexpr float kPadCmid = 3.0e38f;           // cmid of B3 padding
 constexpr int kMaxCompactDepth = 64;          // B4: a row fits in a warp
 
-// max and min with -0 ordered below +0, as the plain version's
-// clip_signed (and XLA) take them: between two zeros, a + b is the
-// larger and -(-a - b) the smaller.
+// max and min with -0 ordered below +0 and NaN propagated, as the plain
+// version's clip_signed (torch.maximum / torch.minimum, and XLA) take
+// them: between two zeros, a + b is the larger and -(-a - b) the
+// smaller, and either of those is NaN where a or b is.
+__device__ __forceinline__ bool zeros_or_nan(float a, float b) {
+  return (a == 0.0f && b == 0.0f) || a != a || b != b;
+}
 __device__ __forceinline__ float max_signed(float a, float b) {
-  return (a == 0.0f && b == 0.0f) ? __fadd_rn(a, b) : fmaxf(a, b);
+  return zeros_or_nan(a, b) ? __fadd_rn(a, b) : fmaxf(a, b);
 }
 __device__ __forceinline__ float min_signed(float a, float b) {
-  return (a == 0.0f && b == 0.0f) ? -__fsub_rn(-a, b) : fminf(a, b);
+  return zeros_or_nan(a, b) ? -__fsub_rn(-a, b) : fminf(a, b);
 }
 
-// One quantile of one row, the tail of td.weighted_eval
-// (tdigest.py:403-443): rank search, neighbour read, midpoint
-// interpolation, single-point rule, optional clamp, empty-row zero.
-__device__ float quantile_tail(const float* m, const float* cmid, int d,
-                               int n_real, float total, float q,
-                               bool clamp, float lo, float hi) {
-  const float tq = __fmul_rn(q, total);
+// A row of floats in shared memory, read by column: Row reads a plain
+// array (B3, B4), StagedRow a row of a warp's padded staging (slot).
+struct Row {
+  const float* p;
+  __device__ float operator()(int c) const { return p[c]; }
+};
+struct StagedRow {
+  const float* p;
+  int base;   // the chunk point of column 0
+  __device__ float operator()(int c) const { return p[slot(base + c)]; }
+};
+
+// The tail's rank #{c < d : cmid(c) < tq}.  rank_count counts it point
+// by point; rank_search finds it by binary search (the first c with
+// !(cmid(c) < tq)) in at most log2(d) + 1 reads, the same number
+// wherever cmid is non-decreasing along the row.
+template <typename C>
+__device__ int rank_count(C cmid, int d, float tq) {
   int rank = 0;
-  for (int c = 0; c < d; ++c) rank += cmid[c] < tq ? 1 : 0;
+  for (int c = 0; c < d; ++c) rank += cmid(c) < tq ? 1 : 0;
+  return rank;
+}
+
+template <typename C>
+__device__ int rank_search(C cmid, int d, float tq) {
+  int lo = 0;
+  int n = d;
+  while (n > 0) {
+    const int half = n >> 1;
+    if (cmid(lo + half) < tq) {
+      lo += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
+    }
+  }
+  return lo;
+}
+
+// B2's cmid of sorted column c in a row of n points, and its rank in
+// closed form: the first n cmids are c + 0.5 and the rest kPadCmid, so
+// #{c : cmid[c] < tq} = #{c < n : c < tq - 0.5} + (kPadCmid < tq ? d - n
+// : 0), the first term ceil(tq - 0.5) clamped to [0, n].  tq - 0.5 is
+// exact in double for every f32 tq below 2^52 (and a larger one gives n
+// either way), a NaN tq gives 0 as every compare fails, so this is the
+// count bit for bit, at half-integer tq too.
+__device__ __forceinline__ float uniform_cmid(int c, int n) {
+  return c < n ? static_cast<float>(c) + 0.5f : kPadCmid;
+}
+
+__device__ int rank_uniform(int n, int d, float tq) {
+  const double x = static_cast<double>(tq) - 0.5;
+  int rank = !(x > 0.0) ? 0 : (x >= n ? n : static_cast<int>(ceil(x)));
+  if (kPadCmid < tq) rank += d - n;
+  return rank;
+}
+
+// The sorted column the tail interpolates up to, from the rank.
+__device__ __forceinline__ int tail_index(int rank, int n_real) {
   const int hi_bound = n_real - 1 > 1 ? n_real - 1 : 1;
-  const int ii = min(max(rank, 1), hi_bound);
-  const float m_hi = m[ii];
-  const float m_lo = m[ii - 1];
-  const float c_hi = cmid[ii];
-  const float c_lo = cmid[ii - 1];
+  return min(max(rank, 1), hi_bound);
+}
+
+// One quantile of one row from its tail_index ii, the rest of the tail
+// of td.weighted_eval (tdigest.py:217-233): neighbour read, midpoint
+// interpolation, single-point rule, optional clamp, empty-row zero.
+// m reads the row's m_clean, c_lo and c_hi are the cmids at ii - 1 and
+// ii.
+template <typename M>
+__device__ float tail_value(M m, int ii, float c_lo, float c_hi, float tq,
+                            int n_real, float total, bool clamp, float lo,
+                            float hi) {
+  const float m_hi = m(ii);
+  const float m_lo = m(ii - 1);
   float tt = 0.0f;
   if (c_hi > c_lo) {
     tt = __fdiv_rn(__fsub_rn(tq, c_lo), fmaxf(__fsub_rn(c_hi, c_lo), 1e-30f));
   }
   tt = fminf(fmaxf(tt, 0.0f), 1.0f);
   float v = __fadd_rn(m_lo, __fmul_rn(__fsub_rn(m_hi, m_lo), tt));
-  if (n_real <= 1) v = m[0];
+  if (n_real <= 1) v = m(0);
   if (clamp) v = min_signed(max_signed(v, lo), hi);
   return total > 0.0f ? v : 0.0f;
 }
 
-// The weighted evaluation after the sort, shared by B1 and B4: key[]
+// One quantile of a row whose m_clean and cmid are read by m and cmid.
+template <typename M, typename C>
+__device__ float quantile_tail(M m, C cmid, int rank, int n_real, float tq,
+                               float total, bool clamp, float lo, float hi) {
+  const int ii = tail_index(rank, n_real);
+  return tail_value(m, ii, cmid(ii - 1), cmid(ii), tq, n_real, total, clamp,
+                    lo, hi);
+}
+
+// B4's weighted evaluation after the sort: key[]
 // holds each row's values in ascending order (padding +inf) and w[] the
 // weights beside them.  Writes each valid row's [P+2] output.  cum[],
 // wsum[] and n_real[] are scratch (n_real zeroed by the caller, with a
@@ -144,7 +239,7 @@ __device__ void eval_sorted_rows(float* key, float* w, float* cum,
   }
   __syncthreads();
   // inclusive prefix sums of the weights and of value * weight
-  scan_rows<true>(cum, wsum, d);
+  scan_rows(cum, wsum, d);
   for (int e = t; e < kBlockPoints; e += kThreads) {
     w[e] = __fsub_rn(cum[e], __fmul_rn(0.5f, w[e]));   // cmid
   }
@@ -158,9 +253,12 @@ __device__ void eval_sorted_rows(float* key, float* w, float* cum,
     const int p = task - r * n_pct;
     const long row = row0 + r;
     const int b = r * d;
+    const float total = cum[b + d - 1];
+    const float tq = __fmul_rn(pct[p], total);
+    const Row cmid{w + b};
     out[row * stride + p] = quantile_tail(
-        key + b, w + b, d, n_real[r], cum[b + d - 1], pct[p], true,
-        dmin[row], dmax[row]);
+        Row{key + b}, cmid, rank_count(cmid, d, tq), n_real[r], tq, total,
+        true, dmin[row], dmax[row]);
   }
   for (int r = t; r < valid; r += kThreads) {
     const long row = row0 + r;
@@ -169,42 +267,14 @@ __device__ void eval_sorted_rows(float* key, float* w, float* cum,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-weighted_eval_kernel(const T* __restrict__ mean,
-                     const float* __restrict__ weight,
-                     const float* __restrict__ dmin,
-                     const float* __restrict__ dmax,
-                     const float* __restrict__ pct,
-                     float* __restrict__ out, int u, int d, int n_pct) {
-  __shared__ float key[kBlockPoints];   // sorted values, then m_clean
-  __shared__ float w[kBlockPoints];     // weights, then cmid
-  __shared__ float cum[kBlockPoints];   // inclusive prefix of weights
-  __shared__ float wsum[kBlockPoints];  // inclusive prefix of value*weight
-  __shared__ int n_real[kBlockPoints];  // per row of this CTA
-
-  const int t = threadIdx.x;
-  const int rows = kBlockPoints / d;
-  const long row0 = static_cast<long>(blockIdx.x) * rows;
-  const long base = row0 * d;
-  const long limit = static_cast<long>(u) * d;
-
-  load_pairs(mean, weight, key, w, base, limit);
-  for (int r = t; r < rows; r += kThreads) n_real[r] = 0;
-  __syncthreads();
-  bitonic_rows<true>(key, w, d);
-  eval_sorted_rows(key, w, cum, wsum, n_real, dmin, dmax, pct, out, u, d,
-                   n_pct, row0);
-}
-
 // B4: a row of D <= 64 points lies inside one warp's 64 (two per lane,
 // lane l holding the warp's points 2l and 2l + 1), so the bitonic
 // network runs on the packed words in registers: the j == 1 stages
 // compare a lane's own two words, every other stage exchanges with lane
 // l ^ (j / 2) through __shfl_xor_sync, with no barrier.  The sorted
 // words' column payloads then gather each point's value and weight
-// from shared memory, and B1's scan and tail (eval_sorted_rows) finish
-// the rows.  Gathering the staged value, rather than unpacking the key,
+// from shared memory, and the block scan and tail (eval_sorted_rows)
+// finish the rows.  Gathering the staged value, rather than unpacking the key,
 // keeps a -0 a -0, as the plain version's sort does.
 __global__ void __launch_bounds__(kThreads)
 weighted_eval_compact_kernel(const __nv_bfloat16* __restrict__ mean,
@@ -254,73 +324,6 @@ weighted_eval_compact_kernel(const __nv_bfloat16* __restrict__ mean,
                    n_pct, row0);
 }
 
-// B2: the key-only network of B3 fed by B1's weight matrix.  Holes
-// (w <= 0) key +inf and sort last, so after the sort the first
-// n_real[r] columns of a row are its points in ascending order; no
-// weight moves through the network and no weight prefix sum is taken.
-__global__ void __launch_bounds__(kThreads)
-weighted_eval_uniform_kernel(const float* __restrict__ mean,
-                             const float* __restrict__ weight,
-                             const float* __restrict__ dmin,
-                             const float* __restrict__ dmax,
-                             const float* __restrict__ pct,
-                             float* __restrict__ out, int u, int d,
-                             int n_pct) {
-  __shared__ float key[kBlockPoints];    // sorted values, then m_clean
-  __shared__ float cmid[kBlockPoints];
-  __shared__ float wsum[kBlockPoints];   // inclusive prefix of m_clean
-  __shared__ int n_real[kBlockPoints];
-
-  const int t = threadIdx.x;
-  const int rows = kBlockPoints / d;
-  const long row0 = static_cast<long>(blockIdx.x) * rows;
-  const long base = row0 * d;
-  const long limit = static_cast<long>(u) * d;
-
-  if (t < rows) n_real[t] = 0;
-  __syncthreads();
-  for (int e = t; e < kBlockPoints; e += kThreads) {
-    float v = CUDART_INF_F;
-    if (base + e < limit && weight[base + e] > 0.0f) {
-      v = mean[base + e];
-      atomicAdd(&n_real[e / d], 1);
-    }
-    key[e] = v;
-  }
-  __syncthreads();
-  bitonic_rows<false>(key, nullptr, d);
-
-  for (int e = t; e < kBlockPoints; e += kThreads) {
-    const int c = e & (d - 1);
-    const bool occ = c < n_real[e / d];
-    key[e] = occ ? key[e] : 0.0f;
-    cmid[e] = occ ? static_cast<float>(c) + 0.5f : kPadCmid;
-    wsum[e] = key[e];
-  }
-  __syncthreads();
-  // the weighted sum: B1's scan, so the same adds in the same order
-  scan_rows<false>(wsum, nullptr, d);
-
-  const long left = static_cast<long>(u) - row0;
-  const int valid = left < rows ? static_cast<int>(left) : rows;
-  const int stride = n_pct + 2;
-  for (int task = t; task < valid * n_pct; task += kThreads) {
-    const int r = task / n_pct;
-    const int p = task - r * n_pct;
-    const long row = row0 + r;
-    const int b = r * d;
-    const int n = n_real[r];
-    out[row * stride + p] = quantile_tail(
-        key + b, cmid + b, d, n, static_cast<float>(n), pct[p], true,
-        dmin[row], dmax[row]);
-  }
-  for (int r = t; r < valid; r += kThreads) {
-    const long row = row0 + r;
-    out[row * stride + n_pct] = static_cast<float>(n_real[r]);
-    out[row * stride + n_pct + 1] = wsum[r * d + d - 1];
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 uniform_eval_kernel(const T* __restrict__ mean,
@@ -364,60 +367,269 @@ uniform_eval_kernel(const T* __restrict__ mean,
     const int p = task - r * n_pct;
     const int b = r * d;
     const int n = n_real[r];
+    const float total = static_cast<float>(n);
+    const float tq = __fmul_rn(pct[p], total);
+    const Row c{cmid + b};
     out[(row0 + r) * n_pct + p] = quantile_tail(
-        key + b, cmid + b, d, n, static_cast<float>(n), pct[p], false,
-        0.0f, 0.0f);
+        Row{key + b}, c, rank_count(c, d, tq), n, tq, total, false, 0.0f,
+        0.0f);
   }
 }
 
-// H1 (kWide false) and H2 (kWide true): the cut kCut of B1 on a CTA's
-// block, one value s per row (see the top of the file).
+// B1's and B2's per-row results of a warp's chunk (at most 32 rows).
+struct RowStats {
+  int n_real[32];     // occupied points (w > 0)
+  int counted[32];    // 1: cmid falls somewhere, so count the rank
+  float total[32];    // total weight
+  float sum[32];      // weighted sum
+};
+
+// The emit of a warp's rows from their m_clean (sv) and cmid (sw) in
+// its padded staging: each lane takes (row, column) tasks of the rows'
+// [P+2] outputs in turn, so the warp's stores are contiguous.
+// kUniform: B2's tail (cmid in closed form, rank_uniform).
+template <bool kUniform>
+__device__ void emit_rows(const float* sv, const float* sw,
+                          const RowStats& st,
+                          const float* __restrict__ dmin,
+                          const float* __restrict__ dmax,
+                          const float* __restrict__ pct,
+                          float* __restrict__ out, int u, int d, int n_pct,
+                          long base, int lane, int chunk) {
+  const long row0 = base / d;
+  const long left = static_cast<long>(u) - row0;
+  const int rows = left < chunk / d ? static_cast<int>(left) : chunk / d;
+  const int stride = n_pct + 2;
+  for (int task = lane; task < rows * stride; task += 32) {
+    const int r = task / stride;
+    const int c = task - r * stride;
+    const long row = row0 + r;
+    const float total = kUniform ? static_cast<float>(st.n_real[r])
+                                 : st.total[r];
+    float v;
+    if (c < n_pct) {
+      const StagedRow m{sv, r * d};
+      const float tq = __fmul_rn(pct[c], total);
+      const int n = st.n_real[r];
+      if constexpr (kUniform) {
+        const int ii = tail_index(rank_uniform(n, d, tq), n);
+        v = tail_value(m, ii, uniform_cmid(ii - 1, n), uniform_cmid(ii, n),
+                       tq, n, total, true, dmin[row], dmax[row]);
+      } else {
+        const StagedRow cmid{sw, r * d};
+        const int rank = st.counted[r] ? rank_count(cmid, d, tq)
+                                       : rank_search(cmid, d, tq);
+        v = quantile_tail(m, cmid, rank, n, tq, total, true, dmin[row],
+                          dmax[row]);
+      }
+    } else {
+      v = c == n_pct ? total : st.sum[r];
+    }
+    out[row * stride + c] = v;
+  }
+}
+
+// B1: a warp's chunk staged (stage_chunk), sorted as packed words and
+// gathered (sorted_pairs), then m_clean (holes read 0), the prefix sums
+// of the weights and of m_clean * w (warp_scan), cmid = cum - w / 2, and
+// the tail.  A row whose cmid falls anywhere (a negative or NaN weight)
+// counts its ranks; the others search.
+template <int E, typename T>
+__global__ void __launch_bounds__(kWarpThreads)
+weighted_eval_kernel(const T* __restrict__ mean,
+                     const float* __restrict__ weight,
+                     const float* __restrict__ dmin,
+                     const float* __restrict__ dmax,
+                     const float* __restrict__ pct,
+                     float* __restrict__ out, int u, int d, int n_pct) {
+  constexpr int kN = 32 * E;
+  __shared__ float s_v[kWarps][kStaging<E>];   // staged values, then m_clean
+  __shared__ float s_w[kWarps][kStaging<E>];   // staged weights, then cmid
+  __shared__ RowStats s_row[kWarps];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long base = (static_cast<long>(blockIdx.x) * kWarps + warp) * kN;
+  const long limit = static_cast<long>(u) * d;
+  if (base >= limit) return;
+  float* sv = s_v[warp];
+  float* sw = s_w[warp];
+  stage_chunk<E>(mean, weight, sv, sw, base, limit, lane);
+  __syncwarp();
+  float v[E], w[E];
+  sorted_pairs<E>(sv, sw, d, lane, v, w);
+
+  const int p0 = lane * E;
+  float cum[E], ws[E];
+  int occ = 0;
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const bool o = w[r] > 0.0f;
+    const float mc = o ? v[r] : 0.0f;
+    sv[slot(p0 + r)] = mc;
+    cum[r] = w[r];
+    ws[r] = __fmul_rn(mc, w[r]);
+    occ += o ? 1 : 0;
+  }
+  warp_scan<E>(cum, d, lane);
+  warp_scan<E>(ws, d, lane);
+  int falls = 0;
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    w[r] = __fsub_rn(cum[r], __fmul_rn(0.5f, w[r]));   // cmid
+    sw[slot(p0 + r)] = w[r];
+    if (r > 0) falls |= !(w[r - 1] <= w[r]) ? 1 : 0;
+  }
+  const int lanes = d / E;
+  const int pos = lane & (lanes - 1);
+  const float next = __shfl_down_sync(kFull, w[0], 1);
+  if (pos + 1 < lanes) falls |= !(w[E - 1] <= next) ? 1 : 0;
+  occ = row_lanes_sum(occ, lanes);
+  falls = row_lanes_sum(falls, lanes);
+  RowStats& st = s_row[warp];
+  if (pos == lanes - 1) {
+    const int r = p0 / d;
+    st.n_real[r] = occ;
+    st.counted[r] = falls > 0 ? 1 : 0;
+    st.total[r] = cum[E - 1];
+    st.sum[r] = ws[E - 1];
+  }
+  __syncwarp();
+  emit_rows<false>(sv, sw, st, dmin, dmax, pct, out, u, d, n_pct, base,
+                   lane, kN);
+}
+
+// B2: the chunk staged as B1's, the keys (value where w > 0, else +inf)
+// sorted alone by B1's network in registers, the first n_real sorted
+// columns of a row its points (m_clean 0 after them), their sum by B1's
+// scan, and the tail with the closed-form rank.  No weight moves and no
+// weight prefix is taken.
+template <int E>
+__global__ void __launch_bounds__(kWarpThreads)
+weighted_eval_uniform_kernel(const float* __restrict__ mean,
+                             const float* __restrict__ weight,
+                             const float* __restrict__ dmin,
+                             const float* __restrict__ dmax,
+                             const float* __restrict__ pct,
+                             float* __restrict__ out, int u, int d,
+                             int n_pct) {
+  constexpr int kN = 32 * E;
+  __shared__ float s_v[kWarps][kStaging<E>];   // staged values, then m_clean
+  __shared__ float s_w[kWarps][kStaging<E>];   // staged weights
+  __shared__ RowStats s_row[kWarps];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long base = (static_cast<long>(blockIdx.x) * kWarps + warp) * kN;
+  const long limit = static_cast<long>(u) * d;
+  if (base >= limit) return;
+  float* sv = s_v[warp];
+  float* sw = s_w[warp];
+  stage_chunk<E>(mean, weight, sv, sw, base, limit, lane);
+  __syncwarp();
+
+  const int p0 = lane * E;
+  float key[E];
+  int occ = 0;
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int at = slot(p0 + r);
+    const bool o = sw[at] > 0.0f;
+    key[r] = o ? sv[at] : CUDART_INF_F;
+    occ += o ? 1 : 0;
+  }
+  const int lanes = d / E;
+  const int pos = lane & (lanes - 1);
+  occ = row_lanes_sum(occ, lanes);
+  warp_bitonic<E>(key, d, lane);
+  const int col0 = p0 & (d - 1);
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    key[r] = col0 + r < occ ? key[r] : 0.0f;
+    sv[slot(p0 + r)] = key[r];
+  }
+  // the weighted sum: B1's scan, so the same adds in the same order
+  warp_scan<E>(key, d, lane);
+  RowStats& st = s_row[warp];
+  if (pos == lanes - 1) {
+    st.n_real[p0 / d] = occ;
+    st.sum[p0 / d] = key[E - 1];
+  }
+  __syncwarp();
+  emit_rows<true>(sv, sw, st, dmin, dmax, pct, out, u, d, n_pct, base,
+                  lane, kN);
+}
+
+// H1 (kWide false) and H2 (kWide true): the cut kCut of B1 on a warp's
+// chunk, one value s per row (see the top of the file), from B1's own
+// stage_chunk, sorted_pairs and warp_scan.
 constexpr int kCutRead = 0;
 constexpr int kCutSort = 1;
 constexpr int kCutCumsum = 2;
 
-template <int kCut, bool kWide>
-__global__ void __launch_bounds__(kThreads)
+template <int E, int kCut, bool kWide>
+__global__ void __launch_bounds__(kWarpThreads)
 stage_slice_kernel(const float* __restrict__ mean,
                    const float* __restrict__ weight,
                    const float* __restrict__ dmin,
                    const float* __restrict__ dmax,
                    const float* __restrict__ pct, float* __restrict__ out,
                    int u, int d, int n_pct) {
-  __shared__ float key[kBlockPoints];
-  __shared__ float w[kBlockPoints];
+  constexpr int kN = 32 * E;
+  __shared__ float s_v[kWarps][kStaging<E>];
+  __shared__ float s_w[kWarps][kStaging<E>];
+  __shared__ float s_row[kWarps][32];
 
-  const int t = threadIdx.x;
-  const int rows = kBlockPoints / d;
-  const long row0 = static_cast<long>(blockIdx.x) * rows;
-  load_pairs(mean, weight, key, w, row0 * d, static_cast<long>(u) * d);
-  __syncthreads();
-  if (kCut != kCutRead) bitonic_rows<true>(key, w, d);
-  // the row value: the last prefix of the weights, or sum(key * w)
-  float* x = key;
-  if (kCut == kCutCumsum) {
-    scan_rows<false>(w, nullptr, d);
-    x = w;
-  } else {
-    for (int e = t; e < kBlockPoints; e += kThreads) {
-      key[e] = __fmul_rn(key[e], w[e]);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long base = (static_cast<long>(blockIdx.x) * kWarps + warp) * kN;
+  const long limit = static_cast<long>(u) * d;
+  if (base >= limit) return;
+  float* sv = s_v[warp];
+  float* sw = s_w[warp];
+  stage_chunk<E>(mean, weight, sv, sw, base, limit, lane);
+  __syncwarp();
+  const int p0 = lane * E;
+  float v[E], w[E];
+  if constexpr (kCut == kCutRead) {
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      v[r] = sv[slot(p0 + r)];
+      w[r] = sw[slot(p0 + r)];
     }
-    __syncthreads();
-    row_sums(key, d);
+  } else {
+    sorted_pairs<E>(sv, sw, d, lane, v, w);
   }
-  const int last = kCut == kCutCumsum ? d - 1 : 0;
+  // the row value: the last prefix of the weights, or sum(key * w)
+  const int lanes = d / E;
+  const int pos = lane & (lanes - 1);
+  float s;
+  if constexpr (kCut == kCutCumsum) {
+    warp_scan<E>(w, d, lane);
+    s = w[E - 1];
+    if (pos == lanes - 1) s_row[warp][p0 / d] = s;
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      v[r] = __fmul_rn(w[r] > 0.0f ? v[r] : CUDART_INF_F, w[r]);
+    }
+    warp_tree_sum<E>(v, d);
+    if (pos == 0) s_row[warp][p0 / d] = v[0];
+  }
+  __syncwarp();
+  const long row0 = base / d;
   const long left = static_cast<long>(u) - row0;
-  const int valid = left < rows ? static_cast<int>(left) : rows;
+  const int rows = left < kN / d ? static_cast<int>(left) : kN / d;
   if constexpr (!kWide) {
-    for (int r = t; r < valid; r += kThreads) out[row0 + r] = x[r * d + last];
+    for (int r = lane; r < rows; r += 32) out[row0 + r] = s_row[warp][r];
   } else {
     const int stride = n_pct + 2;
-    for (int task = t; task < valid * stride; task += kThreads) {
+    for (int task = lane; task < rows * stride; task += 32) {
       const int r = task / stride;
       const int c = task - r * stride;
       const long row = row0 + r;
       out[row * stride + c] =
-          c < n_pct ? __fmul_rn(x[r * d + last], pct[c])
+          c < n_pct ? __fmul_rn(s_row[warp][r], pct[c])
                     : (c == n_pct ? dmin[row] : dmax[row]);
     }
   }
@@ -427,20 +639,28 @@ template <int kCut, bool kWide>
 int launch_slice(const float* mean, const float* weight, const float* dmin,
                  const float* dmax, const float* pct, float* out, int u,
                  int d, int n_pct, void* stream) {
-  stage_slice_kernel<kCut, kWide><<<blocks_for(u, d), kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      mean, weight, dmin, dmax, pct, out, u, d, n_pct);
-  return static_cast<int>(cudaGetLastError());
+  return with_lane_points(d, [&](auto e) {
+    constexpr int E = decltype(e)::value;
+    stage_slice_kernel<E, kCut, kWide>
+        <<<warp_blocks(u, d, E), kWarpThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(mean, weight, dmin, dmax,
+                                                pct, out, u, d, n_pct);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 template <typename T>
 int launch_weighted(const T* mean, const float* weight, const float* dmin,
                     const float* dmax, const float* pct, float* out, int u,
                     int d, int n_pct, void* stream) {
-  weighted_eval_kernel<T><<<blocks_for(u, d), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      mean, weight, dmin, dmax, pct, out, u, d, n_pct);
-  return static_cast<int>(cudaGetLastError());
+  return with_lane_points(d, [&](auto e) {
+    constexpr int E = decltype(e)::value;
+    weighted_eval_kernel<E, T>
+        <<<warp_blocks(u, d, E), kWarpThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(mean, weight, dmin, dmax,
+                                                pct, out, u, d, n_pct);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 template <typename T>
@@ -490,10 +710,14 @@ extern "C" int vn_weighted_eval_uniform(const float* mean,
                                         const float* dmin, const float* dmax,
                                         const float* pct, float* out, int u,
                                         int d, int n_pct, void* stream) {
-  weighted_eval_uniform_kernel<<<blocks_for(u, d), kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      mean, weight, dmin, dmax, pct, out, u, d, n_pct);
-  return static_cast<int>(cudaGetLastError());
+  return with_lane_points(d, [&](auto e) {
+    constexpr int E = decltype(e)::value;
+    weighted_eval_uniform_kernel<E>
+        <<<warp_blocks(u, d, E), kWarpThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(mean, weight, dmin, dmax,
+                                                pct, out, u, d, n_pct);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" int vn_uniform_eval(const float* mean, const short* depths,

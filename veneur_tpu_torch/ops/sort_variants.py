@@ -14,8 +14,9 @@ flip or concatenated slices) and in the shape of its masks, which mean
 nothing on Hopper.  Each mode runs the Hopper formulation that carries
 its idea (`ops/csrc/sort_variants.cu`):
 
-  v0          the paired network as B1 runs it: shared memory, one
-              barrier a stage, a conditional swap;
+  v0          the paired network in shared memory (B1's formulation
+              before its packed-word network): one barrier a stage, a
+              conditional swap moving a key and a weight;
   v1, v2      the min/max + moved-mask stage (`_cmp_exchange` of
               `veneur_tpu/ops/sorted_eval.py`), branch-free, in shared
               memory; v2 (the `[D, 1]` masks) is the same on this card;

@@ -23,8 +23,12 @@ meshed flush, which is float32-native), and `stage_slice` and
 `stage_slice` (H1) and `stage_slice_wide` (H2) are the profiling
 harness's cuts of B1 (`veneur_tpu.ops.sorted_eval.stage_slice_kernel`
 and the `_variant_kernel` that `scripts/profile_kernel_inloop.py`
-imports): B1's load, then its paired network, then its prefix sum,
-each ending in one value per row; see `ops/csrc/sorted_eval.cu`.
+imports): B1's load, then its sort, then its prefix sum, each ending
+in one value per row; see `ops/csrc/sorted_eval.cu`.
+
+B1, B4 and the cuts sort stably (each point's sort word carries its
+column), so on every row, tied values included, their order is the
+plain versions' stable `torch.sort`.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ def reset_launches() -> None:
 
 def weighted_eval_plain(mean, weight, d_min, d_max, percentiles):
     """B1's and B4's plain version: `td.weighted_eval`, whose stable
-    sort is the order B4 reproduces (B1's network may swap ties)."""
+    sort is the order both kernels reproduce."""
     return td.weighted_eval(mean, weight, d_min, d_max, percentiles)
 
 
@@ -138,18 +142,20 @@ def tree_row_sums(x: torch.Tensor) -> torch.Tensor:
 
 def _sorted_pairs(mean, weight):
     """Each row's keys (value where the weight is positive, else +inf)
-    sorted ascending, with the weights gathered alongside."""
+    sorted ascending and stably, as B1 sorts them, with the weights
+    gathered alongside."""
     inf = torch.tensor(float("inf"), device=mean.device)
     key = torch.where(weight > 0, mean, inf)
-    key, order = torch.sort(key, dim=1)
+    key, order = torch.sort(key, dim=1, stable=True)
     return key, torch.gather(weight, 1, order)
 
 
 def stage_slice_plain(mean, weight, mode: str) -> torch.Tensor:
     """H1's plain version: `[U, D]` f32 values and weights -> `[U]`.
     read: sum(key * w) over the row in column order; sort: the same sum
-    over the rows sorted by key (`torch.sort`, weights gathered); cumsum:
-    the last column of `torch.cumsum` of the sorted weights.  The key
+    over the rows sorted by key (a stable `torch.sort`, weights
+    gathered); cumsum: the last column of `torch.cumsum` of the sorted
+    weights.  The key
     is the value where w > 0, else +inf, so a row with a hole gives NaN
     in read and sort (inf * 0), as the TPU kernel does."""
     if mode not in STAGE_CUTS:

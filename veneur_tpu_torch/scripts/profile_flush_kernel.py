@@ -5,7 +5,7 @@ The port's counterpart of the JAX package's
 pipelined protocol (`veneur_tpu_torch.scripts.pipelined_ms`):
 
   dma / read  H1's read cut: B1's load and a row reduce -> memory floor
-  sort        + B1's paired network (H1)                -> sort cost
+  sort        + B1's sort (H1)                          -> sort cost
   cumsum      + B1's prefix sum of the weights (H1)     -> rank-base cost
   full        B1 (`sorted_eval.weighted_eval`)          -> + quantile tail
   compact     B4 on the values rounded to bf16 (D <= 64)

@@ -6,7 +6,7 @@ The port's counterpart of the JAX package's
 CUDA graph, replayed `pipeline` times).  Modes:
 
   dma   H2's read cut: every operand B1 reads, B1's output shape
-  sort  + B1's paired network (H2)
+  sort  + B1's sort (H2)
   full  B1 itself
 
 H2 (`sorted_eval.stage_slice_wide`) is the port's definition of the

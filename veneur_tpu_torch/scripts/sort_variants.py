@@ -1,7 +1,7 @@
 """Bitonic compare-exchange formulations on the card (H3).
 
 The port's counterpart of the JAX package's `scripts/sort_variants.py`:
-every formulation of `ops/sort_variants.py` (v0 the production network,
+every formulation of `ops/sort_variants.py` (v0 the paired network,
 v1/v2 min/max + moved mask, v3/v5/v6 the xor partner with warp
 shuffles, c0 B4's packed word network, c1 B3's key-only network) sorts
 the same `[K, D]` rows of bf16-exact values with weights 1.  First a
