@@ -130,6 +130,9 @@ SOLVER_RULE = 1e-3
 # 2^-8 of its magnitude (plus float32 rounding) of numpy's Hazen
 # percentile of the unrounded samples
 BF16_REL = 2.0 ** -8
+# cuda_ms's spin before the opening event: ~0.5 ms at the H100's clocks,
+# longer than any wrapper's host work between two launches
+HOST_SLACK_CYCLES = 1_000_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 
@@ -311,13 +314,14 @@ def tied_rows(u, d, gen, dev, bf16=False, integer=True):
     return m, w, dmin, dmax, pct
 
 
-def odd_weight_rows(u, d, gen, dev):
+def odd_weight_rows(u, d, gen, dev, bf16=False):
     """B1 inputs outside what a flush stages, their holes holding 0 as
     the dense build leaves them (ROADMAP C9): tied_rows' float32 rows
     with NaN at ~10% of the occupied points of every third row, and
     weight -1 at ~20% of the holes of every other row (its cmid falls,
     so the tail counts that row's ranks).  Each row's [min, max] is over
-    its non-NaN points."""
+    its non-NaN points.  bf16: the same values staged as bf16 (B4's
+    input; every value is bf16-exact)."""
     import torch
     m, w, _, _, pct = tied_rows(u, d, gen, dev)
     row = torch.arange(u, device=dev)[:, None]
@@ -331,7 +335,28 @@ def odd_weight_rows(u, d, gen, dev):
     m = torch.where(w > 0, m, torch.zeros_like(m))
     dmin, dmax = _bounds(torch.where(nan, torch.zeros_like(m), m),
                          w * ~nan)
+    if bf16:
+        m = m.to(torch.bfloat16)
     return m.contiguous(), w.contiguous(), dmin, dmax, pct
+
+
+def tied_depth_rows(u, d, gen, dev, bf16=False):
+    """B3 inputs with tied runs: compact_rows' integer values (drawn per
+    row from [-r, r], zeros of both signs) in the first depths[k]
+    columns, depths over [0, D] with the edge rows (empty, single
+    point, full, full whole-row tie), as float32 or bf16 values (all
+    bf16-exact), with tied_rows' 33 percentiles."""
+    import torch
+    m = compact_rows(u, d, gen, dev)[0].float()
+    depths = torch.randint(0, d + 1, (u,), generator=gen, device=dev)
+    if u >= 4:
+        depths[0], depths[1], depths[2], depths[3] = 0, 1, d, d
+        m[3] = 7.0
+    col = torch.arange(d, device=dev)[None, :]
+    m = torch.where(col < depths[:, None], m, torch.zeros((), device=dev))
+    m = m.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
+    pct = torch.arange(33, device=dev, dtype=torch.float32) / 32
+    return m, depths.to(torch.int16), pct
 
 
 def bf16_depth_rows(u, d, gen, dev, integer=True):
@@ -496,17 +521,26 @@ def check_compact(args, cnt=None, got=None) -> float:
 # Timing and bounds
 # ---------------------------------------------------------------------------
 
-def cuda_ms(fn, iters: int = 20) -> float:
-    """Device time of one fn() as a flush meets it, with its inputs not
-    in the L2 cache: the median over `iters` calls, each timed alone by
-    CUDA events after a 128 MB write has evicted the 50 MB L2, after
-    one warm-up call."""
+def cuda_ms(fn, iters: int = 20, slack: int = HOST_SLACK_CYCLES) -> float:
+    """Device time of one fn() with its inputs not in the L2 cache: the
+    median over `iters` calls, each timed alone by CUDA events after a
+    128 MB write has evicted the 50 MB L2, after one warm-up call.  A
+    spin of `slack` cycles on the card follows the eviction, so the host
+    has queued fn's launch and the closing event before the opening
+    event fires: the events then time the device's work alone, not the
+    wrapper's host work (tens of microseconds of Python, more than a
+    small kernel takes), which a flush meets and `kernel_ms` includes.
+    slack=0: no spin, the events open right after the eviction (the
+    earlier instrument; veneur_tpu_torch/scripts/kernel_ab.py times
+    both)."""
     import torch
     fn()
     evict = torch.empty(32 << 20, dtype=torch.float32, device=DEVICE)
     marks = []
     for _ in range(iters):
         evict.zero_()
+        if slack:
+            torch.cuda._sleep(slack)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -677,14 +711,14 @@ def check_weighted(args, integer: bool, compact: bool = False,
     return float(diff.max())
 
 
-def check_odd_weights(args) -> None:
-    """B1 against its plain version on odd_weight_rows: NaN in the same
-    places; elsewhere the quantile and total columns bitwise and the
-    weighted sums equal (ROADMAP C9: with holes holding 0 the two agree
-    on NaN values and negative weights too)."""
+def check_odd_weights(args, compact: bool = False) -> None:
+    """B1 (compact: B4) against its plain version on odd_weight_rows:
+    NaN in the same places; elsewhere the quantile and total columns
+    bitwise and the weighted sums equal (ROADMAP C9: with holes holding
+    0 the two agree on NaN values and negative weights too)."""
     import torch
     from veneur_tpu_torch.ops import sorted_eval as se
-    got = se.weighted_eval(*args)
+    got = se.weighted_eval(*args, compact=compact)
     ref = se.weighted_eval_plain(*args)
     torch.cuda.synchronize()
     n = args[4].shape[0]
@@ -693,18 +727,21 @@ def check_odd_weights(args) -> None:
     require(torch.equal(torch.isnan(got), nan)
             and _same_bits(g[:, :n + 1], r[:, :n + 1])
             and torch.equal(g[:, n + 1], r[:, n + 1]),
-            f"weighted_eval {tuple(args[0].shape)} on NaN values and "
-            f"negative weights: kernel != plain at "
+            f"{_variant(args[0], compact)} {tuple(args[0].shape)} on NaN "
+            f"values and negative weights: kernel != plain at "
             f"{(g != r).nonzero()[:5].tolist()}")
 
 
 def check_uniform(args, integer: bool, got=None) -> float:
-    """B3 against its plain version on the same `args`: bitwise on
-    integer tie-free rows; on gamma rows within one ulp (B3 skips the
-    [min, max] clamp the plain version applies, and the interpolation
-    can round one ulp past the top point).  `got`: a main-path output
-    to hold to the same rule instead of a new launch.  Returns the
-    largest absolute difference; raises when they disagree."""
+    """B3 against its plain version on the same `args`: on integer rows,
+    tie-free or tied, bitwise but where the plain version's quantile is
+    -0: B3 skips the [min, max] clamp (ROADMAP C1), so where the plain
+    version clamps a zero quantile to a -0 bound B3 reads +0 (C12), and
+    must read a zero there; on gamma rows within one ulp (the
+    interpolation can round one ulp past the top point, which the clamp
+    pulls back).  `got`: a main-path output to hold to the same rule
+    instead of a new launch.  Returns the largest absolute difference;
+    raises when they disagree."""
     import torch
     from veneur_tpu_torch.ops import sorted_eval as se
     if got is None:
@@ -713,16 +750,20 @@ def check_uniform(args, integer: bool, got=None) -> float:
     torch.cuda.synchronize()
     diff = (got - ref).abs()
     if integer:
-        ok = torch.equal(got, ref)
+        neg0 = (ref == 0) & torch.signbit(ref)
+        ok = (_same_bits(got.masked_fill(neg0, 0.0),
+                         ref.masked_fill(neg0, 0.0))
+              and bool((got[neg0] == 0).all()))
     else:
         ulp = torch.nextafter(ref.abs(), torch.tensor(
             float("inf"), device=ref.device)) - ref.abs()
         ok = bool((diff <= ulp).all())
     if not ok:
-        bad = (diff > 0).nonzero()[:5].tolist()
+        bad = (got.view(torch.int32) != ref.view(torch.int32)).nonzero()
         raise AssertionError(
             f"uniform_eval {tuple(args[0].shape)} integer={integer}: "
-            f"kernel != plain at {bad} (max |diff| {float(diff.max())})")
+            f"kernel != plain at {bad[:5].tolist()} (max |diff| "
+            f"{float(diff.max())})")
     return float(diff.max())
 
 
@@ -746,7 +787,9 @@ def phase_kernels(us=(1, 100, 4096, 16384, 131072),
     every depth (`uds`).  Integer (B5: t-grid) and gamma rows.  Then B1
     (both value types) on tied_rows at every `tus` x `tds` (U = 1
     leaves the last CTA part-filled at every depth, U = 100 at all but
-    D = 1024), and on odd_weight_rows.  Returns the largest absolute difference seen per
+    D = 1024), B1 on odd_weight_rows at every `tds` and B4 at every
+    `cds`, and B3 (both value types) on tied_depth_rows at every `tus`
+    x `uds`.  Returns the largest absolute difference seen per
     kernel."""
     import torch
     from veneur_tpu_torch.ops import sorted_eval as se
@@ -819,6 +862,20 @@ def phase_kernels(us=(1, 100, 4096, 16384, 131072),
         check_odd_weights(odd_weight_rows(4096, d, gen, dev))
     log(f"B1 == plain on rows with NaN values and negative weights at "
         f"U=4096 for D in {tds} (NaN alike, else bitwise)")
+    for d in cds:
+        check_odd_weights(odd_weight_rows(4096, d, gen, dev, bf16=True),
+                          compact=True)
+    log(f"B4 == plain on rows with NaN values and negative weights at "
+        f"U=4096 for D in {cds} (NaN alike, else bitwise)")
+    for u in tus:
+        for d in uds:
+            for bf16 in (False, True):
+                name = "uniform_eval_bf16" if bf16 else "uniform_eval"
+                err[name] = max(err[name], check_uniform(
+                    tied_depth_rows(u, d, gen, dev, bf16), True))
+        log(f"B3 (f32, bf16) == plain at U={u} for D in {uds} on tied "
+            f"integer rows with +-0, depths 0..D and 33 percentiles "
+            f"(bitwise, but +0 where the plain version clamps to -0: C12)")
     # no percentiles: B1 still writes each row's total and sum
     m, w, dmin, dmax, pct = weighted_rows(100, 64, gen, dev)
     got = se.weighted_eval(m, w, dmin, dmax, pct[:0])
@@ -827,6 +884,10 @@ def phase_kernels(us=(1, 100, 4096, 16384, 131072),
             "weighted_eval with no percentiles != plain")
     check_weighted(compact_rows(100, 64, gen, dev)[:4] + (pct[:0],), True,
                    compact=True)
+    m, depths, pct = depth_rows(100, 8, gen, dev)
+    require(se.uniform_eval(m, depths, pct[:0]).shape == (100, 0),
+            "uniform_eval with no percentiles: wrong shape")
+    torch.cuda.synchronize()
     log(f"kernel vs plain max |diff|: {err}")
     return err
 

@@ -151,6 +151,77 @@ def test_b4_plain_orders_signed_zeros_as_the_twin():
     assert not np.array_equal(kern[mixed], twin[mixed])
 
 
+def _b4_word(v, w, col, nan_last=True):
+    """B4's 32-bit sort word in numpy, from bf16 values widened to f32:
+    `compact_sort_word` of `ops/csrc/sort_network.cuh` (nan_last), or
+    `compact_word`, H3's c0 and the JAX kernel's `_pack_compact` order
+    (not nan_last).  The bf16 bits (v's top half; a hole, w <= 0, keys
+    +inf; -0 as +0) through the monotone map in the high half, the
+    column in the low half; nan_last keys every NaN above +inf."""
+    b = (np.asarray(v, np.float32).view(np.uint32) >> 16).astype(np.uint32)
+    b = np.where(w > 0, b, np.uint32(0x7F80)).astype(np.uint32)
+    b[b == 0x8000] = 0
+    if nan_last:
+        b[(b & 0x7FFF) > 0x7F80] = 0x7FFF
+    m16 = np.where(b & 0x8000, 0xFFFF - b, b | 0x8000).astype(np.uint32)
+    return (m16 << 16) | np.asarray(col, np.uint32)
+
+
+def test_b4_words_sort_in_the_plain_versions_stable_order():
+    """Sorting B4's words is the plain version's stable `torch.sort` of
+    the widened keys, BITWISE as a permutation, on ties, zeros of both
+    signs, holes, infinities and NaN of both signs (every NaN last,
+    after the holes, in column order).  H3's compact_word, the JAX
+    kernel's order, differs exactly on the rows holding an occupied
+    negative-signed NaN, which it sorts first (ROADMAP C10)."""
+    rng = np.random.default_rng(41)
+    u, d = 256, 64
+    m, w = _rows(u, d, rng)
+    pm = _rows(u, d, rng, pm_zero=True)[0]
+    m = np.where(np.arange(u)[:, None] % 2 == 1, pm, m)
+    nan, neg_nan = (np.asarray([0x7FC00000, 0xFFC00000], np.uint32)
+                    .view(np.float32))
+    special = np.asarray([nan, neg_nan, np.inf, -np.inf], np.float32)
+    m = np.where(rng.random((u, d)) < 0.1,
+                 special[rng.integers(0, 4, (u, d))], m).astype(np.float32)
+    w = np.where(rng.random((u, d)) < 0.05, np.float32(-1.0), w)
+    wide = m.astype(ml_dtypes.bfloat16).astype(np.float32)
+    col = np.broadcast_to(np.arange(d), (u, d))
+    key = torch.where(torch.from_numpy(w) > 0, torch.from_numpy(wide),
+                      torch.tensor(float("inf")))
+    want = torch.sort(key, dim=1, stable=True).indices.numpy()
+    np.testing.assert_array_equal(
+        np.argsort(_b4_word(wide, w, col), axis=1), want)
+    old = np.argsort(_b4_word(wide, w, col, nan_last=False), axis=1)
+    neg = ((w > 0) & np.isnan(wide) & np.signbit(wide)).any(axis=1)
+    assert 20 < neg.sum() < u
+    np.testing.assert_array_equal(old[~neg], want[~neg])
+    assert all(not np.array_equal(old[r], want[r])
+               for r in np.flatnonzero(neg))
+
+
+def test_b4_plain_orders_negative_nan_as_the_twin():
+    """ROADMAP C10, the smallest input on which it shows: one row of
+    D = 4, values [1, 2, -NaN, 0], weights [1, 1, 1, 0].  The twin and
+    the port (plain version and B4's word) sort -NaN last, so the
+    median interpolates between 1 and 2 and is 2; the JAX compact
+    kernel sorts it first and gives NaN.  The port equals the twin
+    exactly, NaN in the same places."""
+    neg_nan = np.asarray([0xFFC00000], np.uint32).view(np.float32)[0]
+    m = np.asarray([[1.0, 2.0, neg_nan, 0.0]], np.float32)
+    w = np.asarray([[1.0, 1.0, 1.0, 0.0]], np.float32)
+    dmin, dmax = np.asarray([1.0], np.float32), np.asarray([2.0], np.float32)
+    got = se.weighted_eval(*_port_args(m, w, dmin, dmax), compact=True)
+    twin = np.asarray(jtd.weighted_eval(*_jax_args(m, w, dmin, dmax)))
+    np.testing.assert_array_equal(got.numpy(), twin)
+    kern = np.asarray(jse.weighted_eval(*_jax_args(m, w, dmin, dmax),
+                                        interpret=True, compact=True))
+    med = PCT.index(0.5)
+    assert got[0, med] == 2.0 and np.isnan(kern[0, med])
+    order = np.argsort(_b4_word(m, w, np.arange(4)), axis=1)
+    np.testing.assert_array_equal(order, [[0, 1, 3, 2]])
+
+
 def test_plain_clip_keeps_jax_signed_zeros():
     """The plain version's [min, max] clamp gives jnp.clip's zero: a +0
     quantile of a row whose max is -0 comes out -0, as in the twin

@@ -205,6 +205,223 @@ def test_b2_closed_form_rank_is_the_count():
             assert _rank_uniform(n, d, tq) == int((cmid < tq).sum()), (n, tq)
 
 
+def _b3_cmid(n, d):
+    """B3's cmid over a row of depth n, as the block kernel built it
+    point by point: c + 0.5 for c < n, 3e38 after."""
+    return np.where(np.arange(d) < n, np.arange(d) + 0.5,
+                    3.0e38).astype(np.float32)
+
+
+@pytest.mark.parametrize("d", [2, 8, 64, 1024])
+def test_b3_closed_form_rank_over_the_depth_is_the_count(d):
+    """B3's warp kernel takes each rank in closed form over the row's
+    depth (`rank_uniform(n = depth, d, tq)`, tq = q * depth rounded to
+    f32 as the kernel rounds it); it must equal the point count
+    #{cmid < tq} that the block kernel took, BITWISE as an integer, at
+    every depth from 0 to D, on a percentile grid whose tq falls on
+    half-integers (a cmid itself), just beside them, and on NaN tq."""
+    depths = sorted({0, 1, 2, d - 1, d}
+                    | set(range(0, d + 1, max(1, d // 16))))
+    grid = np.concatenate([np.arange(65, dtype=np.float32) / 64,
+                           np.asarray([np.nan, 1e-30, 0.999999], np.float32)])
+    for n in depths:
+        cmid = _b3_cmid(n, d)
+        qs = grid
+        if n:
+            # q with q * n a half-integer, and its f32 neighbours
+            half = (np.arange(n, dtype=np.float32) + np.float32(0.5)) / n
+            qs = np.concatenate([
+                grid, half, np.nextafter(half, np.float32(np.inf)),
+                np.nextafter(half, np.float32(-np.inf))]).astype(np.float32)
+        tqs = qs * np.float32(n)
+        assert np.isnan(tqs).any()
+        if n:
+            assert (tqs == np.floor(tqs) + np.float32(0.5)).any()
+        for tq in tqs:
+            assert _rank_uniform(n, d, tq) == int((cmid < tq).sum()), (n, tq)
+
+
+def _lane_points(d):
+    """`lane_points` of `ops/csrc/sort_network.cuh`: E, the points a
+    lane holds in rows of depth d."""
+    return d if d <= 8 else (d // 2 if d <= 32 else 32)
+
+
+def _exchange(lo, hi, asc):
+    """bitonic_rows' compare-exchange rule, elementwise: swap only where
+    the lower key is strictly greater (ascending) or strictly less
+    (descending)."""
+    swap = np.where(asc, lo > hi, lo < hi)
+    return np.where(swap, hi, lo), np.where(swap, lo, hi)
+
+
+def _bitonic_rows(key):
+    """`bitonic_rows<false>` in numpy: the block network's stages, every
+    compare-exchange of a stage at once, on each row of `key`."""
+    key = key.copy()
+    d = key.shape[1]
+    idx = np.arange(d)
+    k = 2
+    while k <= d:
+        j = k >> 1
+        while j > 0:
+            i = idx[(idx & j) == 0]
+            key[:, i], key[:, i + j] = _exchange(
+                key[:, i], key[:, i + j], (i & k) == 0)
+            j >>= 1
+        k <<= 1
+    return key
+
+
+def _warp_bitonic(key):
+    """`warp_bitonic<E>` in numpy, step for step: the rows of `key`,
+    row-major, cut into warp chunks of 32 lanes x E points (lane l holds
+    a chunk's points l E .. l E + E - 1); the in-lane merges of runs
+    shorter than E, then from k = E on the strides of E and more
+    between lanes l and l ^ (j / E) (every lane of a stage reading its
+    partner's value from before the stage, as a shuffle does) and the
+    strides below E inside each lane."""
+    u, d = key.shape
+    e = _lane_points(d)
+    x = key.reshape(-1, 32, e).copy()
+    lane = np.arange(32)[None, :]
+    k = 2
+    while k < e:
+        j = k >> 1
+        while j > 0:
+            for r in range(e):
+                if r & j == 0:
+                    x[:, :, r], x[:, :, r | j] = _exchange(
+                        x[:, :, r], x[:, :, r | j], (r & k) == 0)
+            j >>= 1
+        k <<= 1
+    first = (lane * e) & (d - 1)
+    k = e
+    while k <= d:
+        asc = (first & k) == 0
+        j = k >> 1
+        while j >= e:
+            other = x[:, lane[0] ^ (j // e), :]
+            lower = ((lane & (j // e)) == 0)[:, :, None]
+            lo = np.where(lower, x, other)
+            hi = np.where(lower, other, x)
+            take = np.where(asc[:, :, None], lo > hi, lo < hi)
+            x = np.where(take, other, x)
+            j >>= 1
+        j = e >> 1
+        while j > 0:
+            for r in range(e):
+                if r & j == 0:
+                    x[:, :, r], x[:, :, r | j] = _exchange(
+                        x[:, :, r], x[:, :, r | j], asc)
+            j >>= 1
+        k <<= 1
+    return x.reshape(u, d)
+
+
+@pytest.mark.parametrize("d", [2, 4, 8, 16, 32, 64, 128, 256, 512, 1024])
+def test_warp_network_makes_the_block_networks_exchanges(d):
+    """B3's sorted keys are the block network's bits: `warp_bitonic`,
+    at the points a lane holds at this depth (every E of lane_points
+    across the grid), gives `bitonic_rows`' output BITWISE on B3's keys
+    (values below the depth, +inf after) with ties, zeros of both signs,
+    infinities and NaN, whose order neither network fixes by value."""
+    rng = np.random.default_rng(4100 + d)
+    u = max(8, 32 * _lane_points(d) // d * 2)
+    m = _tied_rows(u, d, rng)[0]
+    special = np.array([np.nan, -np.inf, np.inf, -0.0, 0.0], np.float32)
+    m = np.where(rng.random((u, d)) < 0.05,
+                 special[rng.integers(0, 5, (u, d))], m).astype(np.float32)
+    depths = rng.integers(0, d + 1, u)
+    depths[:2] = (0, d)
+    key = np.where(np.arange(d)[None, :] < depths[:, None], m,
+                   np.float32(np.inf)).astype(np.float32)
+    want = _bitonic_rows(key)
+    got = _warp_bitonic(key)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    zero = want == 0
+    assert (zero & np.signbit(want)).any() and (zero & ~np.signbit(want)).any()
+
+
+def _tied_depth_rows(u, d, rng):
+    """B3 inputs with tied runs: _tied_rows' integer values (zeros of
+    both signs) in the first depths[k] columns, depths over [0, D] with
+    the edge rows (empty, single point, full, full whole-row tie), and
+    the smallest rows of C11 and C12 ([-0, +0] and [-0, -0] at depth 2)
+    as rows 4 and 5."""
+    m, _, _, _, pct = _tied_rows(u, d, rng)
+    depths = rng.integers(0, d + 1, u).astype(np.int16)
+    depths[:6] = (0, 1, d, d, 2, 2)
+    m[4, :2] = (-0.0, 0.0)
+    m[5, :2] = (-0.0, -0.0)
+    m = np.where(np.arange(d)[None, :] < depths[:, None], m,
+                 np.float32(0.0)).astype(np.float32)
+    return m, depths, pct
+
+
+def _b3_model(m, depths, pct):
+    """B3's CUDA kernel in numpy, step for step: the keys (value below
+    the depth, +inf after) sorted by `warp_bitonic`, the closed-form
+    rank over the depth, tail_value's f32 interpolation with its unit
+    step, no [min, max] clamp (ROADMAP C1), and 0 on an empty row."""
+    u, d = m.shape
+    key = np.where(np.arange(d)[None, :] < depths[:, None], m,
+                   np.float32(np.inf)).astype(np.float32)
+    srt = _warp_bitonic(key)
+    out = np.zeros((u, len(pct)), np.float32)
+    for r in range(u):
+        n = int(depths[r])
+        for c, q in enumerate(pct):
+            if n <= 1:
+                out[r, c] = srt[r, 0] if n else 0.0
+                continue
+            tq = np.float32(q) * np.float32(n)
+            ii = min(max(_rank_uniform(n, d, tq), 1), n - 1)
+            tt = np.float32(np.clip(tq - np.float32(ii - 0.5), 0, 1))
+            out[r, c] = srt[r, ii - 1] + np.float32(
+                (srt[r, ii] - srt[r, ii - 1]) * tt)
+    return out
+
+
+@pytest.mark.parametrize("d", [2, 8, 64])
+def test_b3_plain_takes_signed_zero_bounds_as_the_twin(d):
+    """ROADMAP C11: B3's plain version rebuilds each row's [min, max]
+    with -0 below +0, as the twin's `jnp.min` / `jnp.max` do, so on tied
+    rows with zeros of both signs it is the twin BITWISE.  Smallest
+    input (row 4): [-0, +0] at depth 2, where `torch.amax` gave a -0
+    max and every quantile read -0; the twin reads +0."""
+    rng = np.random.default_rng(4200 + d)
+    m, depths, pct = _tied_depth_rows(64, d, rng)
+    got = se.uniform_eval(*_t(m, depths, pct)).numpy()
+    twin = np.asarray(jserving.digest_eval_uniform(*_j(m, depths, pct)))
+    np.testing.assert_array_equal(got.view(np.int32), twin.view(np.int32))
+    assert not np.signbit(got[4]).any() and np.signbit(got[5]).all()
+
+
+@pytest.mark.parametrize("d", [2, 8, 64])
+def test_b3_kernel_reads_plus_zero_where_the_plain_clamps_to_minus_zero(d):
+    """ROADMAP C12, the rule `chip_smoke.py`'s check_uniform holds B3
+    to on integer rows: B3's kernel (modelled step for step) is the
+    JAX kernel's output BITWISE on tied rows with zeros of both signs,
+    and its plain version's bitwise except where the plain version
+    clamps a zero quantile to a -0 bound: there the kernel reads +0 (or
+    a single point's -0).  Smallest input (row 5): [-0, -0] at depth 2 reads +0 in both
+    kernels and -0 in the plain version and the twin."""
+    rng = np.random.default_rng(4300 + d)
+    m, depths, pct = _tied_depth_rows(64, d, rng)
+    model = _b3_model(m, depths, pct)
+    pallas = np.asarray(jse.uniform_eval(*_j(m, depths, pct),
+                                         interpret=True))
+    np.testing.assert_array_equal(model.view(np.int32),
+                                  pallas.view(np.int32))
+    plain = se.uniform_eval(*_t(m, depths, pct)).numpy()
+    neg0 = (plain == 0) & np.signbit(plain)
+    np.testing.assert_array_equal(np.where(neg0, 0, model).view(np.int32),
+                                  np.where(neg0, 0, plain).view(np.int32))
+    assert (model[neg0] == 0).all()
+    assert neg0[5].all() and not np.signbit(model[5]).any()
+
+
 @pytest.mark.parametrize("u,d", [(256, 4), (128, 8), (64, 64), (5, 2)])
 def test_b1_plain_bitwise_on_integer_rows(u, d):
     rng = np.random.default_rng(1000 + d)

@@ -5,14 +5,17 @@
 // stage.
 //
 // Two families.  The block functions (load_pairs, bitonic_rows,
-// scan_rows, row_sums) keep a CTA's kBlockPoints points in shared
-// memory, 1024 / D rows of D points each, D a power of two in [2, 1024],
-// and expect kThreads threads, one compare-exchange each, with a
-// __syncthreads a stage: B3, B4 and H3 run them.  The warp functions
-// (stage_chunk, warp_bitonic, sorted_pairs, warp_scan, warp_tree_sum)
-// are B1's, B2's and H1/H2's: each warp of a CTA works alone on a chunk
-// of 32 E points held in registers (see lane_points), with no barrier
-// but __syncwarp.
+// row_sums, compact_word, compact_network) keep a CTA's kBlockPoints
+// points in shared memory, 1024 / D rows of D points each, D a power of
+// two in [2, 1024], and expect kThreads threads, one compare-exchange
+// each, with a __syncthreads a stage (compact_network: two points a
+// lane, shuffles, no barrier): only H3 runs them, as the formulations
+// it times.  The warp functions (stage_chunk, warp_bitonic, sort_word,
+// compact_sort_word, sorted_pairs, warp_scan,
+// warp_tree_sum) run every flush kernel of sorted_eval.cu (B1, B2, B3,
+// B4) and H1/H2: each warp of a CTA works alone on a chunk of 32 E
+// points held in registers (see lane_points), with no barrier but
+// __syncwarp.
 
 #pragma once
 
@@ -78,30 +81,6 @@ __device__ void bitonic_rows(float* key, float* w, int d) {
   }
 }
 
-// B4's Hillis-Steele inclusive scan inside each D-long row of a[] and
-// of b[], in the same steps: exact for integer weights below 2^24.  The
-// caller has a barrier behind its last write of a/b; the scan ends with
-// one.
-__device__ void scan_rows(float* a, float* b, int d) {
-  const int t = threadIdx.x;
-  for (int s = 1; s < d; s <<= 1) {
-    float xa[2], xb[2];
-    for (int h = 0; h < 2; ++h) {
-      const int e = t + h * kThreads;
-      const bool take = (e & (d - 1)) >= s;
-      xa[h] = take ? a[e - s] : 0.0f;
-      xb[h] = take ? b[e - s] : 0.0f;
-    }
-    __syncthreads();
-    for (int h = 0; h < 2; ++h) {
-      const int e = t + h * kThreads;
-      a[e] = __fadd_rn(a[e], xa[h]);
-      b[e] = __fadd_rn(b[e], xb[h]);
-    }
-    __syncthreads();
-  }
-}
-
 // The sum of every D-long row of x[0, 1024), left in the row's first
 // column, by a fixed pairwise tree: at step s = D/2, D/4, ..., 1 column
 // c < s adds column c + s.  The order depends on D alone (not on the
@@ -116,15 +95,17 @@ __device__ void row_sums(float* x, int d) {
   }
 }
 
-// B4's sort word: the bf16 key's bits through the monotone IEEE map
-// (negatives flip every bit, positives set the sign bit) in the high
-// half, the column in the low half, so the UNSIGNED order of the words
-// is (value ascending, column ascending) and every word of a row is
-// distinct: sorting them is a stable sort of the values.  (The TPU
-// kernel re-centres the map to sort signed words; the order is the
-// same.)  Padding (weight <= 0) keys +inf, which maps above every
-// finite key.  -0 keys as +0: the stable f32 sort of the plain version
-// holds them equal, so their columns decide, as here.
+// H3's c0 word (B4's word before B4 moved to the warp network): the
+// bf16 key's bits through the monotone IEEE map (negatives flip every
+// bit, positives set the sign bit) in the high half, the column in the
+// low half, so the UNSIGNED order of the words is (value ascending,
+// column ascending) and every word of a row is distinct: sorting them
+// is a stable sort of the values.  (The TPU kernel re-centres the map
+// to sort signed words; the order is the same.)  Padding (weight <= 0)
+// keys +inf, which maps above every finite key.  -0 keys as +0: the
+// stable f32 sort of the plain version holds them equal, so their
+// columns decide, as here.  A negative-signed NaN keys below -inf, as
+// in the JAX kernel's _pack_compact; B4's compact_sort_word does not.
 __device__ __forceinline__ unsigned compact_word(__nv_bfloat16 v, float w,
                                                  int col) {
   unsigned b = w > 0.0f ? __bfloat16_as_ushort(v) : 0x7F80u;
@@ -133,8 +114,8 @@ __device__ __forceinline__ unsigned compact_word(__nv_bfloat16 v, float w,
   return (m16 << 16) | static_cast<unsigned>(col);
 }
 
-// B4's network: a row of D <= 64 points lies inside one warp's 64 (two
-// per lane, lane l holding the warp's points 2l and 2l + 1), so the
+// H3's c0 network: a row of D <= 64 points lies inside one warp's 64
+// (two per lane, lane l holding the warp's points 2l and 2l + 1), so the
 // bitonic network runs on the packed words in registers: the j == 1
 // stages compare a lane's own two words, every other stage exchanges
 // with lane l ^ (j / 2) through __shfl_xor_sync, with no barrier.
@@ -170,7 +151,7 @@ int blocks_for(int u, int d) {
 }
 
 // ---------------------------------------------------------------------------
-// The warp functions: B1, B2 and the stage cuts H1/H2
+// The warp functions: B1, B2, B3, B4 and the stage cuts H1/H2
 // ---------------------------------------------------------------------------
 //
 // A warp holds a chunk of 32 E consecutive points of the row-major
@@ -222,15 +203,36 @@ int with_lane_points(int d, F&& f) {
   }
 }
 
+// The 4 (f32) or 8 (bf16) values of one 16-byte load, widened to f32,
+// at dst[0..]: a bf16 widens to the f32 whose top half it is; the value
+// at the lower address is the low half of its 32-bit word.
+template <typename T>
+__device__ __forceinline__ void store_widened(uint4 b, float* dst) {
+  if constexpr (sizeof(T) == 4) {
+    dst[0] = __uint_as_float(b.x);
+    dst[1] = __uint_as_float(b.y);
+    dst[2] = __uint_as_float(b.z);
+    dst[3] = __uint_as_float(b.w);
+  } else {
+    const unsigned h[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      dst[2 * c] = __uint_as_float(h[c] << 16);
+      dst[2 * c + 1] = __uint_as_float(h[c] & 0xFFFF0000u);
+    }
+  }
+}
+
 // Stages a warp's chunk, the points [base, base + 32 E) of the [U, D]
 // operands, in its shared memory: sv[slot(i)] the value of point
 // base + i widened to f32, sw[slot(i)] its weight, both 0 from `limit`
-// (the end of the last row) on.  A lane loads 16 bytes of an operand at
-// a time, the lanes of the warp on neighbouring addresses; a chunk that
-// ends past `limit` or does not start on a 16-byte boundary loads point
-// by point.  The caller __syncwarp()s before a lane reads another
-// lane's points.
-template <int E, typename T>
+// (the end of the last row) on.  kWeights false (B3, which has no
+// weight operand): the values alone, `weight` and `sw` unread.  A lane
+// loads 16 bytes of an operand at a time, the lanes of the warp on
+// neighbouring addresses; a chunk that ends past `limit` or does not
+// start on a 16-byte boundary loads point by point.  The caller
+// __syncwarp()s before a lane reads another lane's points.
+template <int E, bool kWeights = true, typename T>
 __device__ void stage_chunk(const T* __restrict__ mean,
                             const float* __restrict__ weight, float* sv,
                             float* sw, long base, long limit, int lane) {
@@ -239,57 +241,46 @@ __device__ void stage_chunk(const T* __restrict__ mean,
   constexpr int kW = (kN / 4 + 31) / 32;           // weight loads a lane
   constexpr int kV = (kN / kPerVec + 31) / 32;     // value loads a lane
   const T* m = mean + base;
-  const float* w = weight + base;
-  const bool aligned = ((reinterpret_cast<size_t>(m) |
-                         reinterpret_cast<size_t>(w)) & 15) == 0;
-  if (base + kN <= limit && aligned) {
+  const float* w = nullptr;
+  size_t addr = reinterpret_cast<size_t>(m);
+  if constexpr (kWeights) {
+    w = weight + base;
+    addr |= reinterpret_cast<size_t>(w);
+  }
+  if (base + kN <= limit && (addr & 15) == 0) {
     // loads of global memory and stores to shared memory cannot alias,
     // so the unrolled loops issue every load before the first store;
     // the 4 or 8 points of a load never straddle a pad word
-    const float4* w4 = reinterpret_cast<const float4*>(w);
-    const uint4* m4 = reinterpret_cast<const uint4*>(m);
+    if constexpr (kWeights) {
+      const float4* w4 = reinterpret_cast<const float4*>(w);
 #pragma unroll
-    for (int k = 0; k < kW; ++k) {
-      const int i = lane + 32 * k;
-      if (i >= kN / 4) continue;
-      const float4 x = __ldg(w4 + i);
-      float* dst = sw + slot(4 * i);
-      dst[0] = x.x;
-      dst[1] = x.y;
-      dst[2] = x.z;
-      dst[3] = x.w;
+      for (int k = 0; k < kW; ++k) {
+        const int i = lane + 32 * k;
+        if (i >= kN / 4) continue;
+        const float4 x = __ldg(w4 + i);
+        float* dst = sw + slot(4 * i);
+        dst[0] = x.x;
+        dst[1] = x.y;
+        dst[2] = x.z;
+        dst[3] = x.w;
+      }
     }
+    const uint4* m4 = reinterpret_cast<const uint4*>(m);
 #pragma unroll
     for (int k = 0; k < kV; ++k) {
       const int i = lane + 32 * k;
       if (i >= kN / kPerVec) continue;
-      const uint4 b = __ldg(m4 + i);
-      float* dst = sv + slot(kPerVec * i);
-      if constexpr (sizeof(T) == 4) {
-        dst[0] = __uint_as_float(b.x);
-        dst[1] = __uint_as_float(b.y);
-        dst[2] = __uint_as_float(b.z);
-        dst[3] = __uint_as_float(b.w);
-      } else {
-        // a bf16 widens to the f32 whose top half it is; the value at
-        // the lower address is the low half of its 32-bit word
-        const unsigned h[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          dst[2 * c] = __uint_as_float(h[c] << 16);
-          dst[2 * c + 1] = __uint_as_float(h[c] & 0xFFFF0000u);
-        }
-      }
+      store_widened<T>(__ldg(m4 + i), sv + slot(kPerVec * i));
     }
   } else {
     for (int i = lane; i < kN; i += 32) {
       float v = 0.0f, ww = 0.0f;
       if (base + i < limit) {
         v = widen(m[i]);
-        ww = w[i];
+        if constexpr (kWeights) ww = w[i];
       }
       sv[slot(i)] = v;
-      sw[slot(i)] = ww;
+      if constexpr (kWeights) sw[slot(i)] = ww;
     }
   }
 }
@@ -366,28 +357,63 @@ __device__ __forceinline__ unsigned long long sort_word(float v, float w,
          static_cast<unsigned>(col);
 }
 
-// B1's sort of a staged chunk (stage_chunk, then __syncwarp): each lane
-// packs its E words, warp_bitonic sorts them, and each sorted word's
-// column gathers its point's staged value and weight (the staged value,
-// not the key, so a -0 stays -0).  v[r], w[r] are then the lane's
-// points in sorted order.  Ends with a __syncwarp, after which the
-// staging may be overwritten.
-template <int E>
+// B4's sort word: sort_word's order in 32 bits, for bf16 values.  v is
+// the staged value, a bf16 widened to the f32 whose top half it is, so
+// v's top 16 bits are the bf16's: they go through the monotone map into
+// the high half, the column (< 64) into the low half.  A hole keys
+// +inf, -0 as +0 and every NaN above +inf, as in sort_word (unlike
+// compact_word, H3's c0, which keys a negative-signed NaN below -inf).
+__device__ __forceinline__ unsigned compact_sort_word(float v, float w,
+                                                      int col) {
+  unsigned b = w > 0.0f ? (__float_as_uint(v) >> 16) : 0x7F80u;
+  if (b == 0x8000u) b = 0u;
+  if ((b & 0x7FFFu) > 0x7F80u) b = 0x7FFFu;
+  const unsigned m16 = (b & 0x8000u) ? (0xFFFFu - b) : (b | 0x8000u);
+  return (m16 << 16) | static_cast<unsigned>(col);
+}
+
+// The sort words of sorted_pairs: B1's 64-bit sort_word, or B4's 32-bit
+// compact_sort_word (bf16 values, D <= 64), each with its column.
+struct WideWord {
+  using type = unsigned long long;
+  static __device__ __forceinline__ type make(float v, float w, int col) {
+    return sort_word(v, w, col);
+  }
+  static __device__ __forceinline__ int col(type x) {
+    return static_cast<int>(static_cast<unsigned>(x));
+  }
+};
+struct CompactWord {
+  using type = unsigned;
+  static __device__ __forceinline__ type make(float v, float w, int col) {
+    return compact_sort_word(v, w, col);
+  }
+  static __device__ __forceinline__ int col(type x) {
+    return static_cast<int>(x & 0xFFFFu);
+  }
+};
+
+// B1's (and B4's) sort of a staged chunk (stage_chunk, then
+// __syncwarp): each lane packs its E words, warp_bitonic sorts them,
+// and each sorted word's column gathers its point's staged value and
+// weight (the staged value, not the key, so a -0 stays -0).  v[r], w[r]
+// are then the lane's points in sorted order.  Ends with a __syncwarp,
+// after which the staging may be overwritten.
+template <int E, typename Word = WideWord>
 __device__ void sorted_pairs(const float* sv, const float* sw, int d,
                              int lane, float (&v)[E], float (&w)[E]) {
   const int p0 = lane * E;
-  unsigned long long word[E];
+  typename Word::type word[E];
 #pragma unroll
   for (int r = 0; r < E; ++r) {
     const int at = slot(p0 + r);
-    word[r] = sort_word(sv[at], sw[at], (p0 + r) & (d - 1));
+    word[r] = Word::make(sv[at], sw[at], (p0 + r) & (d - 1));
   }
   warp_bitonic<E>(word, d, lane);
   const int row = p0 & ~(d - 1);
 #pragma unroll
   for (int r = 0; r < E; ++r) {
-    const int src =
-        slot(row + static_cast<int>(static_cast<unsigned>(word[r])));
+    const int src = slot(row + Word::col(word[r]));
     v[r] = sv[src];
     w[r] = sw[src];
   }

@@ -24,12 +24,15 @@
 //               stages with j >= 32 go through shared memory (two
 //               buffers in turn, so one barrier a stage).  For D = 256
 //               that is 6 barrier stages of 36;
-//   3 (c0)      B4's packed bf16-key|column word network in registers
-//               (sort_network.cuh compact_network), D <= 64, then the
-//               gather of each point's value and weight;
-//   4 (c1)      B3's key-only network (bitonic_rows<false>) on the keys
-//               rounded to bf16 and widened at load; the weights stay
-//               in column order, as the TPU's c1 emits them.
+//   3 (c0)      the packed bf16-key|column word network in registers,
+//               two points a lane (sort_network.cuh compact_network,
+//               B4's first formulation), D <= 64, then the gather of
+//               each point's value and weight;
+//   4 (c1)      the key-only network (bitonic_rows<false>, B3's first
+//               formulation, whose exchanges B3's warp network makes)
+//               on the keys rounded to bf16 and widened at load; the
+//               weights stay in column order, as the TPU's c1 emits
+//               them.
 // c0 and c1 round the f32 values to bf16 (round to nearest even) at
 // load; on bf16-exact input that changes nothing.
 //

@@ -18,6 +18,8 @@
 //   vn_weighted_eval_compact (B4) replaces weighted_eval(compact=True)
 //     (_compact_sort_tile, :231-281, inside _tile_general(compact=True),
 //     :369-395): bf16 values, D <= 64, a STABLE sort; output as B1's.
+//     B1's kernel on a 32-bit word (compact_sort_word) in place of
+//     B1's 64-bit one.
 //   vn_weighted_eval_uniform (B2) replaces weighted_eval(uniform=True)
 //     (_kernel_uniform -> _tile_uniform, :397-430, same pallas_call
 //     sites as B1), the meshed flush's network for intervals whose every
@@ -49,16 +51,17 @@
 // Sorting widened values gives the order of sorting the bf16 values:
 // bf16 -> f32 is monotone and injective.
 //
-// What bounds them.  Bytes: B1 and B2 read U*D*(4 or 2) values + U*D*4
-// weights + U*8 (min, max) and write U*(P+2)*4; B3 reads U*D*(4 or 2) + U*2
-// (int16 depths) and writes U*P*4.  Work: the bitonic network is
-// U*D*log2(D)*(log2(D)+1)/4 compare-exchanges, plus the tail's rank
-// searches.  At the flush's shapes the bytes bound them on paper:
-// 3.35 TB/s moves a 131072 x 64 B1 input in ~20 us, while the ~88M
-// compare-exchanges take ~1.3 us at the card's 67 TFLOP/s f32 rate.  In
-// practice a network in shared memory is bound by its barriers and its
-// shared-memory traffic, so B1, B2 and the cuts keep their points in
-// registers (the warp functions of sort_network.cuh):
+// What bounds them.  Bytes: B1, B2 and B4 read U*D*(4 or 2) values +
+// U*D*4 weights + U*8 (min, max) and write U*(P+2)*4; B3 reads
+// U*D*(4 or 2) + U*2 (int16 depths) and writes U*P*4.  Work: the
+// bitonic network is U*D*log2(D)*(log2(D)+1)/4 compare-exchanges, plus
+// the tail's rank searches.  At the flush's shapes the bytes bound them
+// on paper: 3.35 TB/s moves a 131072 x 64 B1 input in ~20 us, while the
+// ~88M compare-exchanges take ~1.3 us at the card's 67 TFLOP/s f32
+// rate.  In practice a network in shared memory is bound by its
+// barriers and its shared-memory traffic, so every kernel here keeps
+// its points in registers (the warp functions of sort_network.cuh; the
+// block functions there are H3's formulations only):
 //   * each warp works alone on a chunk of 32 E points, whole rows, with
 //     no CTA barrier; its loads are 16-byte vectors on neighbouring
 //     addresses into a staging of its own (padded against bank
@@ -72,19 +75,21 @@
 //     the network is stable: tied values keep their column order, as in
 //     the plain version's stable sort, and every quantile is the plain
 //     version's bit for bit on tied rows too.  The sorted columns then
-//     gather each point's staged value and weight;
+//     gather each point's staged value and weight.  B4 is the same
+//     kernel on a 32-bit word (the bf16 key's 16 bits over a 16-bit
+//     column, compact_sort_word), so a compare-exchange is one unsigned
+//     compare and a shuffled stage moves 4 bytes a point;
 //   * the prefix sums run in registers (warp_scan), and the tail finds
 //     each rank #{cmid < tq} by binary search over the row's cmid in
 //     shared memory (log2(D) + 1 reads instead of D).  cmid is
 //     non-decreasing along a row whenever its weights are finite and
-//     not negative; B1 checks every row and counts the rank point by
-//     point on a row where it is not, so a negative or NaN weight keeps
-//     the plain version's count;
-//   * B2 sorts the f32 keys alone (B3's key-only network, the same
-//     compare rule as B1's network, so ±0 keys order as bitonic_rows
-//     orders them), and its rank has a closed form (rank_uniform).
-// B3 and B4 keep their block formulation (shared memory, one barrier a
-// stage) and the point-by-point rank count.
+//     not negative; B1 and B4 check every row and count the rank point
+//     by point on a row where it is not, so a negative or NaN weight
+//     keeps the plain version's count;
+//   * B2 and B3 sort the f32 keys alone (the same compare rule as
+//     bitonic_rows, so ±0 keys order as the block network orders them),
+//     and their rank has a closed form (rank_uniform): B2 over the
+//     occupied count, B3 over the depth.  B3 reads no weight operand.
 //
 // Numerics match the plain PyTorch version (sketches/tdigest.py
 // weighted_eval) bit for bit on data whose sums are exact: the two
@@ -103,8 +108,8 @@
 
 namespace {
 
-constexpr float kPadCmid = 3.0e38f;           // cmid of B3 padding
-constexpr int kMaxCompactDepth = 64;          // B4: a row fits in a warp
+constexpr float kPadCmid = 3.0e38f;           // cmid of B2/B3 padding
+constexpr int kMaxCompactDepth = 64;          // B4's deepest row
 
 // max and min with -0 ordered below +0 and NaN propagated, as the plain
 // version's clip_signed (torch.maximum / torch.minimum, and XLA) take
@@ -120,12 +125,7 @@ __device__ __forceinline__ float min_signed(float a, float b) {
   return zeros_or_nan(a, b) ? -__fsub_rn(-a, b) : fminf(a, b);
 }
 
-// A row of floats in shared memory, read by column: Row reads a plain
-// array (B3, B4), StagedRow a row of a warp's padded staging (slot).
-struct Row {
-  const float* p;
-  __device__ float operator()(int c) const { return p[c]; }
-};
+// A row of floats in a warp's padded staging (slot), read by column.
 struct StagedRow {
   const float* p;
   int base;   // the chunk point of column 0
@@ -159,13 +159,13 @@ __device__ int rank_search(C cmid, int d, float tq) {
   return lo;
 }
 
-// B2's cmid of sorted column c in a row of n points, and its rank in
-// closed form: the first n cmids are c + 0.5 and the rest kPadCmid, so
-// #{c : cmid[c] < tq} = #{c < n : c < tq - 0.5} + (kPadCmid < tq ? d - n
-// : 0), the first term ceil(tq - 0.5) clamped to [0, n].  tq - 0.5 is
-// exact in double for every f32 tq below 2^52 (and a larger one gives n
-// either way), a NaN tq gives 0 as every compare fails, so this is the
-// count bit for bit, at half-integer tq too.
+// B2's and B3's cmid of sorted column c in a row of n points, and its
+// rank in closed form: the first n cmids are c + 0.5 and the rest
+// kPadCmid, so #{c : cmid[c] < tq} = #{c < n : c < tq - 0.5} +
+// (kPadCmid < tq ? d - n : 0), the first term ceil(tq - 0.5) clamped to
+// [0, n].  tq - 0.5 is exact in double for every f32 tq below 2^52 (and
+// a larger one gives n either way), a NaN tq gives 0 as every compare
+// fails, so this is the count bit for bit, at half-integer tq too.
 __device__ __forceinline__ float uniform_cmid(int c, int n) {
   return c < n ? static_cast<float>(c) + 0.5f : kPadCmid;
 }
@@ -187,15 +187,19 @@ __device__ __forceinline__ int tail_index(int rank, int n_real) {
 // of td.weighted_eval (tdigest.py:217-233): neighbour read, midpoint
 // interpolation, single-point rule, optional clamp, empty-row zero.
 // m reads the row's m_clean, c_lo and c_hi are the cmids at ii - 1 and
-// ii.
-template <typename M>
+// ii.  kUnitStep (B3): c_hi - c_lo is 1 wherever the interpolation is
+// kept (n_real >= 2, both cmids c + 0.5), so the division by it drops
+// out, exactly.
+template <bool kUnitStep = false, typename M>
 __device__ float tail_value(M m, int ii, float c_lo, float c_hi, float tq,
                             int n_real, float total, bool clamp, float lo,
                             float hi) {
   const float m_hi = m(ii);
   const float m_lo = m(ii - 1);
   float tt = 0.0f;
-  if (c_hi > c_lo) {
+  if constexpr (kUnitStep) {
+    tt = __fsub_rn(tq, c_lo);
+  } else if (c_hi > c_lo) {
     tt = __fdiv_rn(__fsub_rn(tq, c_lo), fmaxf(__fsub_rn(c_hi, c_lo), 1e-30f));
   }
   tt = fminf(fmaxf(tt, 0.0f), 1.0f);
@@ -214,181 +218,25 @@ __device__ float quantile_tail(M m, C cmid, int rank, int n_real, float tq,
                     lo, hi);
 }
 
-// B4's weighted evaluation after the sort: key[]
-// holds each row's values in ascending order (padding +inf) and w[] the
-// weights beside them.  Writes each valid row's [P+2] output.  cum[],
-// wsum[] and n_real[] are scratch (n_real zeroed by the caller, with a
-// barrier since).
-__device__ void eval_sorted_rows(float* key, float* w, float* cum,
-                                 float* wsum, int* n_real,
-                                 const float* __restrict__ dmin,
-                                 const float* __restrict__ dmax,
-                                 const float* __restrict__ pct,
-                                 float* __restrict__ out, int u, int d,
-                                 int n_pct, long row0) {
-  const int t = threadIdx.x;
-  const int rows = kBlockPoints / d;
-  // m_clean (padding reads 0), occupancy count, scan seeds
-  for (int e = t; e < kBlockPoints; e += kThreads) {
-    const bool occ = w[e] > 0.0f;
-    const float mc = occ ? key[e] : 0.0f;
-    key[e] = mc;
-    cum[e] = w[e];
-    wsum[e] = __fmul_rn(mc, w[e]);
-    if (occ) atomicAdd(&n_real[e / d], 1);
-  }
-  __syncthreads();
-  // inclusive prefix sums of the weights and of value * weight
-  scan_rows(cum, wsum, d);
-  for (int e = t; e < kBlockPoints; e += kThreads) {
-    w[e] = __fsub_rn(cum[e], __fmul_rn(0.5f, w[e]));   // cmid
-  }
-  __syncthreads();
-
-  const long left = static_cast<long>(u) - row0;
-  const int valid = left < rows ? static_cast<int>(left) : rows;
-  const int stride = n_pct + 2;
-  for (int task = t; task < valid * n_pct; task += kThreads) {
-    const int r = task / n_pct;
-    const int p = task - r * n_pct;
-    const long row = row0 + r;
-    const int b = r * d;
-    const float total = cum[b + d - 1];
-    const float tq = __fmul_rn(pct[p], total);
-    const Row cmid{w + b};
-    out[row * stride + p] = quantile_tail(
-        Row{key + b}, cmid, rank_count(cmid, d, tq), n_real[r], tq, total,
-        true, dmin[row], dmax[row]);
-  }
-  for (int r = t; r < valid; r += kThreads) {
-    const long row = row0 + r;
-    out[row * stride + n_pct] = cum[r * d + d - 1];
-    out[row * stride + n_pct + 1] = wsum[r * d + d - 1];
-  }
-}
-
-// B4: a row of D <= 64 points lies inside one warp's 64 (two per lane,
-// lane l holding the warp's points 2l and 2l + 1), so the bitonic
-// network runs on the packed words in registers: the j == 1 stages
-// compare a lane's own two words, every other stage exchanges with lane
-// l ^ (j / 2) through __shfl_xor_sync, with no barrier.  The sorted
-// words' column payloads then gather each point's value and weight
-// from shared memory, and the block scan and tail (eval_sorted_rows)
-// finish the rows.  Gathering the staged value, rather than unpacking the key,
-// keeps a -0 a -0, as the plain version's sort does.
-__global__ void __launch_bounds__(kThreads)
-weighted_eval_compact_kernel(const __nv_bfloat16* __restrict__ mean,
-                             const float* __restrict__ weight,
-                             const float* __restrict__ dmin,
-                             const float* __restrict__ dmax,
-                             const float* __restrict__ pct,
-                             float* __restrict__ out, int u, int d,
-                             int n_pct) {
-  __shared__ float key[kBlockPoints];   // gathered values, then m_clean
-  __shared__ float w[kBlockPoints];     // gathered weights, then cmid
-  __shared__ float cum[kBlockPoints];   // staged weights, then the scan
-  __shared__ float wsum[kBlockPoints];  // staged values, then the scan
-  __shared__ int n_real[kBlockPoints];
-
-  const int t = threadIdx.x;
-  const int rows = kBlockPoints / d;
-  const long row0 = static_cast<long>(blockIdx.x) * rows;
-  const long base = row0 * d;
-  const long limit = static_cast<long>(u) * d;
-
-  unsigned word[2];
-  for (int s = 0; s < 2; ++s) {
-    const int e = 2 * t + s;
-    __nv_bfloat16 v = __float2bfloat16(0.0f);
-    float ww = 0.0f;
-    if (base + e < limit) {
-      v = mean[base + e];
-      ww = weight[base + e];
-    }
-    wsum[e] = widen(v);
-    cum[e] = ww;
-    word[s] = compact_word(v, ww, e & (d - 1));
-  }
-  for (int r = t; r < rows; r += kThreads) n_real[r] = 0;
-
-  compact_network(word, d);
-  __syncthreads();   // staged values and weights visible to the gather
-  for (int s = 0; s < 2; ++s) {
-    const int e = 2 * t + s;
-    const int src = (e & ~(d - 1)) | static_cast<int>(word[s] & 0xFFFFu);
-    key[e] = wsum[src];   // padding's value is masked to 0 next
-    w[e] = cum[src];
-  }
-  __syncthreads();
-  eval_sorted_rows(key, w, cum, wsum, n_real, dmin, dmax, pct, out, u, d,
-                   n_pct, row0);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-uniform_eval_kernel(const T* __restrict__ mean,
-                    const short* __restrict__ depths,
-                    const float* __restrict__ pct,
-                    float* __restrict__ out, int u, int d, int n_pct) {
-  __shared__ float key[kBlockPoints];    // sorted values, then m_clean
-  __shared__ float cmid[kBlockPoints];
-  __shared__ int n_real[kBlockPoints];
-
-  const int t = threadIdx.x;
-  const int rows = kBlockPoints / d;
-  const long row0 = static_cast<long>(blockIdx.x) * rows;
-  const long base = row0 * d;
-
-  for (int r = t; r < rows; r += kThreads) {
-    const long row = row0 + r;
-    n_real[r] = row < u ? min(max(static_cast<int>(depths[row]), 0), d) : 0;
-  }
-  __syncthreads();
-  for (int e = t; e < kBlockPoints; e += kThreads) {
-    const int c = e & (d - 1);
-    key[e] = c < n_real[e / d] ? widen(mean[base + e]) : CUDART_INF_F;
-  }
-  __syncthreads();
-  bitonic_rows<false>(key, nullptr, d);
-
-  // positions are the cumulative weights: cum_i = i + 1, cmid_i = i + 0.5
-  for (int e = t; e < kBlockPoints; e += kThreads) {
-    const int c = e & (d - 1);
-    const bool occ = c < n_real[e / d];
-    key[e] = occ ? key[e] : 0.0f;
-    cmid[e] = occ ? static_cast<float>(c) + 0.5f : kPadCmid;
-  }
-  __syncthreads();
-
-  const long left = static_cast<long>(u) - row0;
-  const int valid = left < rows ? static_cast<int>(left) : rows;
-  for (int task = t; task < valid * n_pct; task += kThreads) {
-    const int r = task / n_pct;
-    const int p = task - r * n_pct;
-    const int b = r * d;
-    const int n = n_real[r];
-    const float total = static_cast<float>(n);
-    const float tq = __fmul_rn(pct[p], total);
-    const Row c{cmid + b};
-    out[(row0 + r) * n_pct + p] = quantile_tail(
-        Row{key + b}, c, rank_count(c, d, tq), n, tq, total, false, 0.0f,
-        0.0f);
-  }
-}
-
-// B1's and B2's per-row results of a warp's chunk (at most 32 rows).
+// The per-row results of a warp's chunk (at most 32 rows).
 struct RowStats {
-  int n_real[32];     // occupied points (w > 0)
+  int n_real[32];     // occupied points (B1, B4: w > 0; B3: the depth)
   int counted[32];    // 1: cmid falls somewhere, so count the rank
   float total[32];    // total weight
   float sum[32];      // weighted sum
 };
 
+// The tails of emit_rows: B1's and B4's (cmid read from the staging,
+// rank searched or counted), B2's (cmid in closed form, rank_uniform,
+// the [min, max] clamp) and B3's (the same closed form over the depth,
+// no clamp, ROADMAP C1; only the P quantile columns).
+enum class Tail { kWeighted, kUnit, kDepth };
+
 // The emit of a warp's rows from their m_clean (sv) and cmid (sw) in
 // its padded staging: each lane takes (row, column) tasks of the rows'
-// [P+2] outputs in turn, so the warp's stores are contiguous.
-// kUniform: B2's tail (cmid in closed form, rank_uniform).
-template <bool kUniform>
+// [P+2] outputs ([P] for kDepth) in turn, so the warp's stores are
+// contiguous.
+template <Tail kTail>
 __device__ void emit_rows(const float* sv, const float* sw,
                           const RowStats& st,
                           const float* __restrict__ dmin,
@@ -399,42 +247,59 @@ __device__ void emit_rows(const float* sv, const float* sw,
   const long row0 = base / d;
   const long left = static_cast<long>(u) - row0;
   const int rows = left < chunk / d ? static_cast<int>(left) : chunk / d;
-  const int stride = n_pct + 2;
+  const int stride = kTail == Tail::kDepth ? n_pct : n_pct + 2;
+  if (stride == 0) return;   // B3 with no percentiles writes nothing
+  // task = r * stride + c, stepped by 32 without a division a task
+  const int dr = 32 / stride;
+  const int dc = 32 - dr * stride;
+  int r = lane / stride;
+  int c = lane - r * stride;
   for (int task = lane; task < rows * stride; task += 32) {
-    const int r = task / stride;
-    const int c = task - r * stride;
     const long row = row0 + r;
-    const float total = kUniform ? static_cast<float>(st.n_real[r])
-                                 : st.total[r];
+    const float total = kTail == Tail::kWeighted
+                            ? st.total[r]
+                            : static_cast<float>(st.n_real[r]);
     float v;
     if (c < n_pct) {
       const StagedRow m{sv, r * d};
       const float tq = __fmul_rn(pct[c], total);
       const int n = st.n_real[r];
-      if constexpr (kUniform) {
-        const int ii = tail_index(rank_uniform(n, d, tq), n);
-        v = tail_value(m, ii, uniform_cmid(ii - 1, n), uniform_cmid(ii, n),
-                       tq, n, total, true, dmin[row], dmax[row]);
-      } else {
+      if constexpr (kTail == Tail::kWeighted) {
         const StagedRow cmid{sw, r * d};
         const int rank = st.counted[r] ? rank_count(cmid, d, tq)
                                        : rank_search(cmid, d, tq);
         v = quantile_tail(m, cmid, rank, n, tq, total, true, dmin[row],
                           dmax[row]);
+      } else {
+        // B2 clamps and divides; B3 (kDepth) does neither
+        constexpr bool kClamp = kTail == Tail::kUnit;
+        const int ii = tail_index(rank_uniform(n, d, tq), n);
+        v = tail_value<!kClamp>(m, ii, uniform_cmid(ii - 1, n),
+                                uniform_cmid(ii, n), tq, n, total, kClamp,
+                                kClamp ? dmin[row] : 0.0f,
+                                kClamp ? dmax[row] : 0.0f);
       }
     } else {
       v = c == n_pct ? total : st.sum[r];
     }
     out[row * stride + c] = v;
+    c += dc;
+    r += dr;
+    if (c >= stride) {
+      c -= stride;
+      ++r;
+    }
   }
 }
 
-// B1: a warp's chunk staged (stage_chunk), sorted as packed words and
-// gathered (sorted_pairs), then m_clean (holes read 0), the prefix sums
-// of the weights and of m_clean * w (warp_scan), cmid = cum - w / 2, and
-// the tail.  A row whose cmid falls anywhere (a negative or NaN weight)
-// counts its ranks; the others search.
-template <int E, typename T>
+// B1 (Word = WideWord, f32 or bf16 values) and B4 (Word = CompactWord,
+// bf16 values, D <= 64): a warp's chunk staged (stage_chunk), sorted as
+// packed words and gathered (sorted_pairs), then m_clean (holes read
+// 0), the prefix sums of the weights and of m_clean * w (warp_scan),
+// cmid = cum - w / 2, and the tail.  A row whose cmid falls anywhere (a
+// negative or NaN weight) counts its ranks; the others search.  B1 and
+// B4 differ in the word alone, and both words sort in the same order.
+template <int E, typename T, typename Word>
 __global__ void __launch_bounds__(kWarpThreads)
 weighted_eval_kernel(const T* __restrict__ mean,
                      const float* __restrict__ weight,
@@ -457,7 +322,7 @@ weighted_eval_kernel(const T* __restrict__ mean,
   stage_chunk<E>(mean, weight, sv, sw, base, limit, lane);
   __syncwarp();
   float v[E], w[E];
-  sorted_pairs<E>(sv, sw, d, lane, v, w);
+  sorted_pairs<E, Word>(sv, sw, d, lane, v, w);
 
   const int p0 = lane * E;
   float cum[E], ws[E];
@@ -495,8 +360,8 @@ weighted_eval_kernel(const T* __restrict__ mean,
     st.sum[r] = ws[E - 1];
   }
   __syncwarp();
-  emit_rows<false>(sv, sw, st, dmin, dmax, pct, out, u, d, n_pct, base,
-                   lane, kN);
+  emit_rows<Tail::kWeighted>(sv, sw, st, dmin, dmax, pct, out, u, d, n_pct,
+                             base, lane, kN);
 }
 
 // B2: the chunk staged as B1's, the keys (value where w > 0, else +inf)
@@ -556,8 +421,59 @@ weighted_eval_uniform_kernel(const float* __restrict__ mean,
     st.sum[p0 / d] = key[E - 1];
   }
   __syncwarp();
-  emit_rows<true>(sv, sw, st, dmin, dmax, pct, out, u, d, n_pct, base,
-                  lane, kN);
+  emit_rows<Tail::kUnit>(sv, sw, st, dmin, dmax, pct, out, u, d, n_pct,
+                         base, lane, kN);
+}
+
+// B3: each warp stages its chunk's values alone (stage_chunk without
+// weights) and each lane its row's int16 depth n; key = value for
+// col < n, else +inf, is sorted alone by the warp network
+// (bitonic_rows' exchanges, so the sorted keys are the block network's
+// bits); m_clean is 0 from column n on, and the tail takes B2's closed
+// form over n with no clamp (ROADMAP C1; so where the plain version
+// clamps a zero quantile to a -0 bound this one reads +0, C12).  Writes
+// the [P] quantile columns only.
+template <int E, typename T>
+__global__ void __launch_bounds__(kWarpThreads)
+uniform_eval_kernel(const T* __restrict__ mean,
+                    const short* __restrict__ depths,
+                    const float* __restrict__ pct,
+                    float* __restrict__ out, int u, int d, int n_pct) {
+  constexpr int kN = 32 * E;
+  __shared__ float s_v[kWarps][kStaging<E>];   // staged values, then m_clean
+  __shared__ RowStats s_row[kWarps];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long base = (static_cast<long>(blockIdx.x) * kWarps + warp) * kN;
+  const long limit = static_cast<long>(u) * d;
+  if (base >= limit) return;
+  float* sv = s_v[warp];
+  stage_chunk<E, false>(mean, nullptr, sv, nullptr, base, limit, lane);
+  const int p0 = lane * E;
+  const long row = (base + p0) / d;
+  const int n = row < u ? min(max(static_cast<int>(__ldg(depths + row)), 0),
+                              d)
+                        : 0;
+  __syncwarp();
+
+  const int col0 = p0 & (d - 1);
+  float key[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    key[r] = col0 + r < n ? sv[slot(p0 + r)] : CUDART_INF_F;
+  }
+  warp_bitonic<E>(key, d, lane);
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    sv[slot(p0 + r)] = col0 + r < n ? key[r] : 0.0f;
+  }
+  const int lanes = d / E;
+  RowStats& st = s_row[warp];
+  if ((lane & (lanes - 1)) == lanes - 1) st.n_real[p0 / d] = n;
+  __syncwarp();
+  emit_rows<Tail::kDepth>(sv, nullptr, st, nullptr, nullptr, pct, out, u,
+                          d, n_pct, base, lane, kN);
 }
 
 // H1 (kWide false) and H2 (kWide true): the cut kCut of B1 on a warp's
@@ -649,13 +565,13 @@ int launch_slice(const float* mean, const float* weight, const float* dmin,
   });
 }
 
-template <typename T>
+template <typename T, typename Word = WideWord>
 int launch_weighted(const T* mean, const float* weight, const float* dmin,
                     const float* dmax, const float* pct, float* out, int u,
                     int d, int n_pct, void* stream) {
   return with_lane_points(d, [&](auto e) {
     constexpr int E = decltype(e)::value;
-    weighted_eval_kernel<E, T>
+    weighted_eval_kernel<E, T, Word>
         <<<warp_blocks(u, d, E), kWarpThreads, 0,
            static_cast<cudaStream_t>(stream)>>>(mean, weight, dmin, dmax,
                                                 pct, out, u, d, n_pct);
@@ -666,10 +582,14 @@ int launch_weighted(const T* mean, const float* weight, const float* dmin,
 template <typename T>
 int launch_uniform(const T* mean, const short* depths, const float* pct,
                    float* out, int u, int d, int n_pct, void* stream) {
-  uniform_eval_kernel<T><<<blocks_for(u, d), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      mean, depths, pct, out, u, d, n_pct);
-  return static_cast<int>(cudaGetLastError());
+  return with_lane_points(d, [&](auto e) {
+    constexpr int E = decltype(e)::value;
+    uniform_eval_kernel<E, T>
+        <<<warp_blocks(u, d, E), kWarpThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(mean, depths, pct, out, u, d,
+                                                n_pct);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -691,18 +611,17 @@ extern "C" int vn_weighted_eval_bf16(const __nv_bfloat16* mean,
                          stream);
 }
 
-// D must be a power of two in [2, 64] (the wrapper checks): a larger
-// row would not fit in one warp's 64 words.
+// D must be a power of two in [2, 64] (the wrapper checks): the column
+// of a 32-bit compact word has 16 bits, and B4 exists for rows this
+// shallow (deeper bf16 rows take B1 on bf16).
 extern "C" int vn_weighted_eval_compact(const __nv_bfloat16* mean,
                                         const float* weight,
                                         const float* dmin, const float* dmax,
                                         const float* pct, float* out, int u,
                                         int d, int n_pct, void* stream) {
-  if (d < 2 || d > kMaxCompactDepth) return cudaErrorInvalidValue;
-  weighted_eval_compact_kernel<<<blocks_for(u, d), kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      mean, weight, dmin, dmax, pct, out, u, d, n_pct);
-  return static_cast<int>(cudaGetLastError());
+  if (d > kMaxCompactDepth) return cudaErrorInvalidValue;
+  return launch_weighted<__nv_bfloat16, CompactWord>(
+      mean, weight, dmin, dmax, pct, out, u, d, n_pct, stream);
 }
 
 extern "C" int vn_weighted_eval_uniform(const float* mean,

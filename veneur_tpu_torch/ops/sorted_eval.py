@@ -27,7 +27,8 @@ imports): B1's load, then its sort, then its prefix sum, each ending
 in one value per row; see `ops/csrc/sorted_eval.cu`.
 
 B1, B4 and the cuts sort stably (each point's sort word carries its
-column), so on every row, tied values included, their order is the
+column; B4's word is 32 bits, B1's 64), so on every row, tied values,
+holes, infinities and NaN of either sign included, their order is the
 plain versions' stable `torch.sort`.
 """
 
@@ -38,8 +39,8 @@ import torch
 from veneur_tpu_torch.sketches import tdigest as td
 
 MAX_DEPTH = 1024
-# B4 (the packed, stable compact-key network) takes rows of at most 64
-# bf16 values: one warp's two words per lane
+# B4 (B1's kernel on 32-bit bf16-key|column words) takes rows of at most
+# 64 bf16 values
 MAX_COMPACT_DEPTH = 64
 # cmid of B2's padding: finite, above any cumulative weight
 _PAD_CMID = 3.0e38
@@ -121,13 +122,27 @@ def uniform_eval_plain(mean, depths, percentiles):
     col = torch.arange(d, device=mean.device)[None, :]
     occ = col < depths.to(torch.int64)[:, None]
     dw = occ.to(torch.float32)
-    inf = torch.tensor(float("inf"), device=mean.device)
     has = depths > 0
     zero = torch.zeros((), device=mean.device)
-    d_min = torch.where(has, torch.where(occ, mean, inf).amin(dim=1), zero)
-    d_max = torch.where(has, torch.where(occ, mean, -inf).amax(dim=1), zero)
+    d_min = torch.where(has, _signed_extreme(mean, occ, False), zero)
+    d_max = torch.where(has, _signed_extreme(mean, occ, True), zero)
     return td.weighted_eval(mean, dw, d_min, d_max,
                             percentiles)[:, :n_pct]
+
+
+def _signed_extreme(x, occ, largest: bool):
+    """Each row's max (largest) or min over its points where `occ`, with
+    -0 below +0 as the twin's `jnp.max` / `jnp.min` order them:
+    `torch.amax` / `amin` may return either zero (ROADMAP C11)."""
+    inf = torch.tensor(float("inf"), device=x.device)
+    zeros = (x == 0) & occ
+    if largest:
+        e = torch.where(occ, x, -inf).amax(dim=1)
+        pick = (zeros & ~torch.signbit(x)).any(dim=1)
+        return torch.where((e == 0) & pick, torch.zeros_like(e), e)
+    e = torch.where(occ, x, inf).amin(dim=1)
+    pick = (zeros & torch.signbit(x)).any(dim=1)
+    return torch.where((e == 0) & pick, -torch.zeros_like(e), e)
 
 
 def tree_row_sums(x: torch.Tensor) -> torch.Tensor:
