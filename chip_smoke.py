@@ -573,7 +573,10 @@ def bound_compact(stage_n: np.ndarray, cap: int) -> tuple[float, str]:
     Operations: a 4cap-value bitonic network per level that holds
     anything (staged or carried), 4cap lg (lg + 1) / 4 compare-exchanges
     with lg = log2(4cap); the selections after it are index arithmetic.
-    The carry counts follow plan_pass's integer dynamics."""
+    The carry counts follow plan_pass's integer dynamics.  The kernel
+    sorts only the 2cap staged keys and merges the sorted carry by rank,
+    fewer operations than counted here, but the bytes term is the larger
+    at every shape this script times, so the bound is the same."""
     u, levels = stage_n.shape
     n = np.clip(stage_n, 0, 2 * cap).astype(np.int64)
     carry = np.zeros(u, np.int64)
@@ -892,15 +895,70 @@ def phase_kernels(us=(1, 100, 4096, 16384, 131072),
     return err
 
 
+def shared_key_rows(u, cap, levels, gen, dev, rng):
+    """B6 inputs whose carry and staging share keys at every level: each
+    level staged full or nearly (n in [2cap - 3, 2cap], so every level
+    promotes into the next), values drawn per row kind by index mod 3
+    from 0 tied integers in [0, 4); 1 -0, +0, -1 and 1; 2 those and
+    positive NaNs of several payloads and +inf, which the plain version
+    sorts behind its +inf padding (6 in 10 staged items, so a full
+    staging holds more than cap of them and some reach the carry).
+    Coin offsets from plan_pass.  Returns (stage_v, stage_n, off)."""
+    import torch
+    from veneur_tpu_torch.sketches import compactor as cs
+    s2 = 2 * cap
+    n = rng.integers(s2 - 3, s2 + 1, (u, levels))
+    off, _, _, _ = cs.plan_pass(n, rng.integers(0, 1 << 20, u),
+                                np.zeros(u, np.int64), cs.DEFAULT_SEED, cap)
+    shape = (u, levels, s2)
+    kd = (torch.arange(u, device=dev) % 3)[:, None, None]
+    ties = torch.randint(0, 4, shape, generator=gen, device=dev).float()
+    zeros = torch.tensor([-0.0, 0.0, -1.0, 1.0], device=dev)[
+        torch.randint(0, 4, shape, generator=gen, device=dev)]
+    big = torch.tensor([0x7FC00000, 0x7F800001, 0x7FFFFFFF, 0x7F800000],
+                       dtype=torch.int32, device=dev)[
+        torch.randint(0, 4, shape, generator=gen, device=dev)]
+    odd = torch.rand(shape, generator=gen, device=dev) < 0.6
+    v = torch.where(kd == 0, ties, zeros)
+    v = torch.where((kd == 2) & odd, big.view(torch.float32), v)
+    nd = torch.from_numpy(n.astype(np.int32)).to(dev)
+    v = torch.where(torch.arange(s2, device=dev) < nd[:, :, None], v,
+                    float("inf"))
+    return (v.contiguous(), nd.contiguous(),
+            torch.from_numpy(off.astype(np.int32)).to(dev))
+
+
+def first_fold_rows(u, cap, levels, gen, dev, rng):
+    """A stand-in for the compactor flush's first B6 launch (the first
+    fold round of fresh keys, each staging 512 samples: compactor_cells'
+    local cell): level 0's staging full (2cap gamma(2, 20) + 10
+    latencies), every other level empty, so level 0 promotes its lowest
+    items into level 1 and the rest stay empty.  Returns (stage_v,
+    stage_n, off)."""
+    import torch
+    from veneur_tpu_torch.sketches import compactor as cs
+    s2 = 2 * cap
+    n = np.zeros((u, levels), np.int64)
+    n[:, 0] = s2
+    off, _, _, _ = cs.plan_pass(n, rng.integers(0, 1 << 20, u),
+                                np.zeros(u, np.int64), cs.DEFAULT_SEED, cap)
+    v = torch.full((u, levels, s2), float("inf"), device=dev)
+    v[:, 0] = _gamma2((u, s2), gen, dev, 20.0) + 10.0
+    return (v.contiguous(), torch.from_numpy(n.astype(np.int32)).to(dev),
+            torch.from_numpy(off.astype(np.int32)).to(dev))
+
+
 def phase_b6(us=(1, 100, 4096, 16384), geometries=B6_GEOMETRIES,
              seed=0) -> float:
     """B6 against its plain version on the card, bitwise, at every U x
     (cap, levels), on compactor_rows' row kinds (empty levels, full
-    staging with both clip rounds, tied integers, +-0, gamma); at U =
-    100 also against the host reference `compactor.apply_pass` (numpy
-    float64): bitwise on rows without -0, and with -0 == +0 on the
-    others (np.sort fixes no order between them).  Returns the largest
-    absolute difference (0.0)."""
+    staging with both clip rounds, tied integers, +-0, gamma) and on
+    shared_key_rows (tied integers, +-0 and positive NaNs at every level,
+    so carry and staging share keys); at U = 100 also against the host
+    reference `compactor.apply_pass` (numpy float64) on compactor_rows:
+    bitwise on rows without -0, and with -0 == +0 on the others (np.sort
+    fixes no order between them).  Returns the largest absolute
+    difference (0.0)."""
     import torch
     from veneur_tpu_torch.ops import compactor_eval as ce
     from veneur_tpu_torch.sketches import compactor as cs
@@ -915,6 +973,8 @@ def phase_b6(us=(1, 100, 4096, 16384), geometries=B6_GEOMETRIES,
             if u >= 2:
                 require(int(clip.max()) == 2, "no row took both clip rounds")
             err = max(err, check_compact(args, cnt))
+            err = max(err, check_compact(
+                shared_key_rows(u, cap, levels, gen, dev, rng)))
             if u == 100:
                 with _not_counted():
                     got = ce.compact_batch(*args).cpu().numpy()
@@ -929,7 +989,8 @@ def phase_b6(us=(1, 100, 4096, 16384), geometries=B6_GEOMETRIES,
                         f"compact_batch {cap}x{levels}: kernel != "
                         "apply_pass")
         log(f"B6 == plain bitwise at cap={cap} levels={levels} for U in "
-            f"{us} (and == apply_pass at U=100)")
+            f"{us}, mixed and shared-key rows (and == apply_pass at "
+            "U=100)")
     return err
 
 
@@ -2221,12 +2282,16 @@ def check_segment_sums(vals, seg, g, got=None) -> float:
     return float((got - ref).abs().max()) if got.numel() else 0.0
 
 
-def phase_b7(us=(1, 8, 100, 4096, 16384, 131072), cs=(1, 20, 128, 256),
-             gs=(1, 16, 256, None), seed=0) -> float:
+def phase_b7(us=(1, 8, 100, 4096, 16384, 131072),
+             cs=(1, 20, 128, 129, 256), gs=(1, 16, 256, None),
+             seed=0) -> float:
     """B7 against its plain version on the card, bitwise, at every
     U x C x G (G = None: G = U) with G <= U, on seg_rows' inputs (empty
-    groups included).  Returns the largest absolute difference
-    (0.0)."""
+    groups included; C = 129 takes the kernel's one-column-a-lane strips
+    past C = 32, C = 128 and 256 four columns a lane), then on groups of
+    sizes below, at, between and above multiples of the kernel's row
+    batch (kRows = 16), empty ones and one group of 1,000 rows.
+    Returns the largest absolute difference (0.0)."""
     import torch
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
@@ -2241,9 +2306,18 @@ def phase_b7(us=(1, 8, 100, 4096, 16384, 131072), cs=(1, 20, 128, 256),
                 vals, seg = seg_rows(u, c, g, gen, dev)
                 err = max(err, check_segment_sums(vals, seg, g))
                 n += 1
+    sizes = [15, 16, 17, 32, 33, 0, 1, 8, 0, 87, 1000]
+    seg = torch.repeat_interleave(
+        torch.arange(len(sizes), device=dev),
+        torch.tensor(sizes, device=dev)).to(torch.int32)
+    for c in (1, 20, 128, 129):
+        vals = seg_rows(len(seg), c, 1, gen, dev)[0]
+        err = max(err, check_segment_sums(vals, seg, len(sizes)))
+        n += 1
     torch.cuda.synchronize()
     log(f"B7 == plain bitwise on {n} shapes: U in {us} x C in {cs} x G in "
-        f"{{1, 16, 256, U}} (G <= U, empty groups included) "
+        f"{{1, 16, 256, U}} (G <= U, empty groups included), and groups "
+        f"of {sizes} rows at C in (1, 20, 128, 129) "
         f"({time.perf_counter() - t0:.1f} s)")
     return err
 

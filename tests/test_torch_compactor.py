@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from veneur_tpu import config as jconfig
 from veneur_tpu.core import arena as jarena
 from veneur_tpu.core.aggregator import MetricAggregator as JAggregator
@@ -248,6 +249,169 @@ def test_b6_wrapper_takes_the_plain_version_only_on_the_cpu():
         ce.compact_batch(*(a.to("meta") for a in args))
     with pytest.raises(ValueError, match="several devices"):
         ce.compact_batch(args[0].to("meta"), *args[1:])
+
+
+# ---------------------------------------------------------------------------
+# a numpy model of B6's kernel (ops/csrc/compactor_eval.cu)
+# ---------------------------------------------------------------------------
+
+_PAD = np.uint32(0xFF800000)          # the key of +inf
+
+
+def _to_key(v) -> np.ndarray:
+    """float32 -> the kernel's unsigned key (the IEEE total order)."""
+    b = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    return np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint32)
+
+
+def _from_key(k) -> np.ndarray:
+    k = np.asarray(k, np.uint32)
+    return np.where(k & 0x80000000, k & 0x7FFFFFFF, ~k).astype(
+        np.uint32).view(np.float32)
+
+
+def _b6_model(stage_v, stage_n, off) -> np.ndarray:
+    """B6's formulation, a key at a time: per level, sort only the 2cap
+    staged keys (+inf padding; a positive NaN keys above it, "big");
+    the buffer is the sorted staging when nothing is carried (big keys
+    read +inf), the carry when nothing is staged, else the rank merge of
+    the sorted staging with the sorted carry padded to 2cap (staged key
+    i at i + #(carry < key), carry key j at j + #(staged <= key)); then
+    the next carry (item 2j + offset, clamped to +inf), the retained
+    items m .. occ-1 (clamped) and the top level's two clip rounds by
+    index arithmetic, each round's big kept keys behind 4cap - kept
+    +inf, as the plain version's re-sort puts them."""
+    u, levels, s2 = stage_v.shape
+    cap = s2 // cs.STAGE_MUL
+    keep, nbuf = cs.keep_of(cap), cs.BUF_MUL * cap
+    idx = np.arange(s2)
+    out = np.empty((u, levels, cap), np.float32)
+    for row in range(u):
+        below, carry_n, carry_o = None, 0, 0
+        for lvl in range(levels):
+            n = int(np.clip(stage_n[row, lvl], 0, s2))
+            occ = n + carry_n
+            if occ == 0:
+                out[row, lvl] = np.inf
+                continue
+            staged = np.full(s2, _PAD)
+            staged[:n] = _to_key(stage_v[row, lvl, :n])
+            staged = np.sort(staged)
+            carry = np.full(s2, _PAD)
+            if carry_n:
+                carry[:carry_n] = np.minimum(
+                    below[carry_o:carry_o + 2 * carry_n:2], _PAD)
+            if carry_n == 0:
+                buf = np.minimum(staged[:n], _PAD)
+            elif n == 0:
+                buf = carry[:carry_n]
+            else:
+                merged = np.empty(2 * s2, np.uint32)
+                merged[idx + np.searchsorted(carry, staged, "left")] = staged
+                merged[idx + np.searchsorted(staged, carry, "right")] = carry
+                buf = merged[:occ]
+            if lvl < levels - 1:
+                sec = occ - keep
+                m = sec - (sec & 1) if occ > cap else 0
+                ret = np.full(cap, _PAD)
+                ret[:occ - m] = np.minimum(buf[m:occ], _PAD)
+                out[row, lvl] = _from_key(ret)
+                below, carry_n = buf, m // 2
+                carry_o = int(off[row, lvl]) & 1
+            else:
+                top = occ
+                for r in range(cs.CLIP_ROUNDS):
+                    m = top - (top & 1) if top > cap else 0
+                    o = int(off[row, levels + r]) & 1
+                    kept = np.concatenate([buf[o:m:2], buf[m:top]])
+                    ks = int((kept <= _PAD).sum())
+                    buf = np.full(nbuf, _PAD)
+                    buf[:ks] = kept[:ks]
+                    buf[nbuf - (len(kept) - ks):] = kept[ks:]
+                    top -= m // 2
+                out[row, lvl] = _from_key(buf[:cap])
+    return out
+
+
+def _b6_kernel_rows(rng, cap, levels, kind):
+    """Staged rows for the model: `ties` (_staged's gamma floats and tied
+    integers, rows full on every level, rows empty), `zeros` (-0, +0,
+    -1, 1, 3 at every level, so staging and carry share keys), `carry`
+    (level 0 full, then every other level empty: levels with n == 0
+    and a carry, beside levels with both) and `nan` (positive NaNs of
+    several payloads and +inf as 6 in 10 staged items, every other row
+    full on every level, so more than cap of them reach a buffer and
+    some are promoted)."""
+    stage_v, stage_n, off, _ = _staged(rng, 24, cap, levels,
+                                       zeros=kind == "zeros")
+    s2 = 2 * cap
+    if kind == "carry":
+        stage_n[:, 0] = s2
+        stage_n[:, 1::2] = 0
+        stage_n[::3, 2::2] = s2
+    if kind == "nan":
+        bits = np.asarray([0x7FC00000, 0x7F800001, 0x7FFFFFFF, 0x7F800000,
+                           0xFFC00000], np.uint32)
+        pick = bits[rng.integers(0, len(bits), stage_v.shape)]
+        hit = rng.random(stage_v.shape) < 0.6
+        stage_v = np.where(hit, pick.view(np.float32), stage_v)
+        stage_n[::2] = s2
+    off, _, _, _ = jcs.plan_pass(stage_n, rng.integers(0, 1 << 30, 24),
+                                 np.zeros(24, np.int64), jcs.DEFAULT_SEED,
+                                 cap)
+    return (np.ascontiguousarray(stage_v, np.float32), stage_n, off)
+
+
+@pytest.mark.parametrize("kind", ["ties", "zeros", "carry", "nan"])
+@pytest.mark.parametrize("cap,levels", chip_smoke.B6_GEOMETRIES)
+def test_b6_kernel_formulation_is_bitwise_plain(cap, levels, kind):
+    """The kernel's formulation (sort the staging alone, merge the
+    sorted carry by rank, select by index, clip the top) gives the plain
+    version's bits at every geometry `chip_smoke.py` holds the kernel
+    to, on tied integers, on +-0 in staging and carry, on levels with
+    nothing staged but a carry, and on positive NaNs, which the plain
+    version sorts behind its +inf padding."""
+    rng = np.random.default_rng(cap * 100 + levels + len(kind))
+    stage_v, stage_n, off = _b6_kernel_rows(rng, cap, levels, kind)
+    want = _plain(stage_v, stage_n, off)
+    np.testing.assert_array_equal(_bits(_b6_model(stage_v, stage_n, off)),
+                                  _bits(want))
+    if kind == "nan":
+        assert np.isnan(want).any()
+    if kind == "zeros":
+        assert (np.signbit(want) & (want == 0)).any()
+
+
+def test_b6_kernel_formulation_on_c4s_smallest_input():
+    """ROADMAP C4's smallest input (cap 8, levels 2, level 0 staged
+    [1, -0, 0, -0, -0, 0, 0, 0, -0], coin offsets [1, 0, 0, 0]): the
+    model and the plain version give level 0 [0, 0, 0, 0, 1] and level 1
+    [-0, -0], bit for bit."""
+    stage_v = np.full((1, 2, 16), np.inf, np.float32)
+    stage_v[0, 0, :9] = [1, -0.0, 0, -0.0, -0.0, 0, 0, 0, -0.0]
+    stage_n = np.asarray([[9, 0]])
+    off = np.asarray([[1, 0, 0, 0]])
+    got = _b6_model(stage_v, stage_n, off)
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(_plain(stage_v, stage_n, off)))
+    want0 = np.asarray([0, 0, 0, 0, 1, np.inf, np.inf, np.inf], np.float32)
+    want1 = np.asarray([-0.0, -0.0] + [np.inf] * 6, np.float32)
+    np.testing.assert_array_equal(_bits(got[0, 0]), _bits(want0))
+    np.testing.assert_array_equal(_bits(got[0, 1]), _bits(want1))
+
+
+def test_b6_source_runs_the_shared_warp_network_without_barriers():
+    """B6 sorts with sort_network.cuh's warp_bitonic (no second network
+    of its own) and its warps never wait for each other: no
+    __syncthreads, only __syncwarp."""
+    import re
+    from pathlib import Path
+    src = (Path(ce.__file__).parent / "csrc" / "compactor_eval.cu"
+           ).read_text()
+    code = re.sub(r"//[^\n]*", "", src)
+    assert '#include "sort_network.cuh"' in code
+    assert "warp_bitonic<" in code and "__syncwarp()" in code
+    assert "__syncthreads" not in code and "bitonic_sort" not in code
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,9 @@ construction) and its XLA twin (`.at[seg].add`).  Tolerances:
 
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -201,3 +204,111 @@ def test_coarsen_matches_jax_on_random_groups(seed):
     hashes = rng.choice(np.asarray([3, 11, 2 ** 63 + 5, 2 ** 64 - 1],
                                    np.uint64), size=n)
     _assert_coarsen_matches(np.stack(vecs), hashes)
+
+
+# ---------------------------------------------------------------------------
+# numpy models of B7's kernel (ops/csrc/segmented_reduce.cu)
+# ---------------------------------------------------------------------------
+
+_CSRC = (Path(__file__).resolve().parents[1] / "veneur_tpu_torch" / "ops"
+         / "csrc" / "segmented_reduce.cu")
+
+
+def _k_rows() -> int:
+    """The kernel's load batch, kRows, read from its source."""
+    return int(re.search(r"constexpr int kRows = (\d+);",
+                         _CSRC.read_text()).group(1))
+
+
+def _warp_bounds(seg, keys):
+    """`bounds`' 32-way search, every lane of a round at once, for each
+    key of `keys` (both ends of a group are two keys): lane i probes the
+    last point of piece i of the interval [lo, hi] holding the first
+    r with seg[r] >= key (every point when it holds 32 or fewer), and
+    the ballot's count t drops the t pieces below key.  Returns the
+    ends and each key's number of rounds of loads."""
+    u = len(seg)
+    lane = np.arange(32)[None, :]
+    lo = np.zeros(len(keys), np.int64)
+    hi = np.full(len(keys), u, np.int64)
+    rounds = np.zeros(len(keys), np.int64)
+    while (lo < hi).any():
+        live = lo < hi
+        n = (hi - lo)[:, None]
+        short = n <= 32
+        p = np.where(short, np.where(lane < n, lo[:, None] + lane, -1),
+                     lo[:, None] + ((lane + 1) * n >> 5) - 1)
+        below = (p >= 0) & (seg[np.clip(p, 0, u - 1)] < keys[:, None])
+        t = below.sum(axis=1)
+        n = n[:, 0]
+        a = np.where(n <= 32, lo + t,
+                     np.where(t == 32, hi, lo + (t * n >> 5)))
+        b = np.where(n <= 32, lo + t,
+                     np.where(t == 32, hi, lo + ((t + 1) * n >> 5) - 1))
+        lo = np.where(live, a, lo)
+        hi = np.where(live, b, hi)
+        rounds += live
+    return lo, rounds
+
+
+@pytest.mark.parametrize("u", [1, 8, 100, 4096, 131072])
+def test_b7_warp_search_finds_every_groups_rows(u):
+    """The 32-way boundary search equals np.searchsorted on every group
+    (empty groups and a single group holding every row included), in
+    at most ceil(log32 U) + 1 rounds of loads (3 at U = 4096, 4 at
+    U = 131072, where a binary search takes 12 and 17)."""
+    rng = np.random.default_rng(u)
+    most = 0
+    for g in sorted({1, 16, 256, u}):
+        pool = np.arange(g) if g < 16 else np.setdiff1d(
+            np.arange(g), np.arange(3, g, 7))      # every 7th group empty
+        cases = [np.sort(rng.choice(pool, size=u)),
+                 np.full(u, g - 1), np.zeros(u, np.int64)]
+        for seg in cases:
+            seg = seg.astype(np.int32)
+            keys = np.arange(g + 1)
+            got, rounds = _warp_bounds(seg, keys)
+            np.testing.assert_array_equal(
+                got, np.searchsorted(seg, keys, side="left"))
+            most = max(most, int(rounds.max()))
+    assert most <= int(np.ceil(np.log(u) / np.log(32))) + 1
+    if u >= 4096:
+        assert most == {4096: 3, 131072: 4}[u]
+
+
+def _row_loop(vals, seg, g, k_rows):
+    """`Column::sum` in numpy: each group's rows in batches of k_rows,
+    batch b + 1 loaded (copied) before batch b is added, the adds one
+    float32 add a row in row order from 0.0."""
+    lo = np.searchsorted(seg, np.arange(g + 1), side="left")
+    out = np.zeros((g, vals.shape[1]), np.float32)
+    for grp in range(g):
+        rows = vals[lo[grp]:lo[grp + 1]]
+        acc = np.zeros(vals.shape[1], np.float32)
+        cur = rows[:k_rows].copy()
+        for r in range(0, len(rows), k_rows):
+            nxt = rows[r + k_rows:r + 2 * k_rows].copy()
+            for k in range(min(k_rows, len(rows) - r)):
+                acc = (acc + cur[k]).astype(np.float32)
+            cur = nxt
+        out[grp] = acc
+    return out
+
+
+@pytest.mark.parametrize("c", [1, 20, 129, 128])
+def test_b7_loads_ahead_row_loop_is_bitwise_plain(c):
+    """The batched row loop adds in the plain version's order: bitwise
+    `segment_sums_plain` on adversarial magnitudes, with groups whose
+    size is below, at, between and above multiples of the batch (and
+    empty ones), at the kernel's kRows and at 8."""
+    k = _k_rows()
+    sizes = [k - 1, k, k + 1, 2 * k, 2 * k + 3, 0, 1, 3, 0, 5 * k + 7]
+    seg = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    rng = np.random.default_rng(c)
+    vals = (rng.normal(size=(len(seg), c))
+            * 10.0 ** rng.integers(-3, 4, size=(len(seg), c))
+            ).astype(np.float32)
+    want = _port(vals, seg, len(sizes))
+    for k_rows in (k, 8):
+        np.testing.assert_array_equal(
+            _bits(_row_loop(vals, seg, len(sizes), k_rows)), _bits(want))

@@ -9,7 +9,10 @@ line numbers):
            host-planned coin offsets in, the compacted `[U, levels, cap]`
            state out.  The count dynamics (which levels compact, every
            coin) are planned on the host by `compactor.plan_pass`; the
-           device replays only the value movement.  On a CPU tensor it
+           device replays only the value movement, a warp per key: per
+           level it sorts only the staged keys (the shared warp network
+           of `csrc/sort_network.cuh`) and merges the already sorted
+           carry by rank, then selects by index.  On a CPU tensor it
            runs `compact_batch_plain`, step for step the JAX package's
            twin (`_compact_twin`, :171).
   eval     `make_compactor_flush` reads quantiles off compacted states

@@ -1,8 +1,9 @@
 // Device functions of the per-row sort networks, shared by the flush's
 // kernels (sorted_eval.cu: B1-B4, and the stage cuts H1/H2 built from
-// B1's own pieces) and by the formulation bench (sort_variants.cu: H3),
-// so a cut or a variant can never time a stale copy of a production
-// stage.
+// B1's own pieces), by the compactor pass (compactor_eval.cu: B6, which
+// sorts each level's staged keys with warp_bitonic) and by the
+// formulation bench (sort_variants.cu: H3), so a cut or a variant can
+// never time a stale copy of a production stage.
 //
 // Two families.  The block functions (load_pairs, bitonic_rows,
 // row_sums, compact_word, compact_network) keep a CTA's kBlockPoints

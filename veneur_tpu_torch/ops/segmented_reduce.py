@@ -15,10 +15,13 @@ sums in one launch.
                   `segment_sums_plain`.  Both add each group's rows
                   strictly in row order from 0.0, the TPU kernel's
                   order, so they agree bitwise with each other and with
-                  the TPU kernel at every tiling.  Ids must be sorted
-                  (the documented contract; the kernel finds each
-                  group's rows as one contiguous range): unsorted or
-                  out-of-range ids raise ValueError.  Any U, C, G >= 1;
+                  the TPU kernel at every tiling.  The kernel is a
+                  warp per group: a 32-way search over the ids finds
+                  the group's rows, lanes run over columns, row loads
+                  go out in batches ahead of the adds.  Ids must be
+                  sorted (the documented contract; the kernel finds
+                  each group's rows as one contiguous range): unsorted
+                  or out-of-range ids raise ValueError.  Any U, C, G >= 1;
                   the JAX package's `usable()` gate and its
                   VENEUR_TPU_DISABLE_SEGMENTED_REDUCE switch have no
                   counterpart here.

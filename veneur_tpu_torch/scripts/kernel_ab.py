@@ -1,11 +1,17 @@
-"""Two checkouts' sort-network kernels timed side by side on one card.
+"""Two checkouts' kernels timed side by side on one card.
 
 Times every kernel built from `ops/csrc/sorted_eval.cu`,
-`sort_network.cuh` and `sort_variants.cu` (B1-B4, H1-H3) at
+`sort_network.cuh` and `sort_variants.cu` (B1-B4, H1-H3), and B6
+(`compactor_eval.cu`) and B7 (`segmented_reduce.cu`), at
 `chip_smoke.py`'s shapes, in a parent checkout and in this one, each in
-processes of its own in the order parent, change, change, parent.  Every
-kernel is held to its plain version first (chip_smoke's checks), then
-timed by chip_smoke's `cuda_ms` both ways: with its spin before the
+processes of its own in the order parent, change, change, parent.  B7
+runs at both of chip_smoke's `b7_times` shapes on `seg_rows` (the cube
+read's 4096 x 20 -> 256 and 131072 x 128 -> 1024), each beside
+`index_add_` (one PyTorch call of the same sums, the same in both
+trees); B6 at 16384 x 14 x 256 on `compactor_rows`' mixed rows and on
+`first_fold_rows`, a stand-in for the compactor flush's first launch.
+Every kernel is held to its plain version first (chip_smoke's checks),
+then timed by chip_smoke's `cuda_ms` both ways: with its spin before the
 opening event (the device's work alone) and without it (`slack=0`, the
 events open right after the L2 eviction, so a kernel shorter than its
 wrapper's host work reads the host's time).  The inputs, checks and
@@ -47,7 +53,8 @@ def _chip_smoke():
 def _cases(cs, se, sv, gen, dev):
     """(name, shape, checked kernel call) of every kernel timed: the
     inputs of chip_smoke's kernel_times and harness_times, gamma rows
-    held to the plain versions before they are returned."""
+    held to the plain versions before they are returned, then B7 and B6
+    (`_b6_b7_cases`)."""
     import torch
     pct = torch.tensor([0.5] + cs.PERCENTILES, device=dev)
     out = []
@@ -90,6 +97,37 @@ def _cases(cs, se, sv, gen, dev):
         cs.check_variants(vm, vw)
         out.append((f"sort_variant {mode}", [u, vd],
                     lambda m=mode, a=(vm, vw): sv.sort_variant(*a, m)))
+    return out + _b6_b7_cases(cs, gen, dev)
+
+
+def _b6_b7_cases(cs, gen, dev):
+    """B7 at b7_times' two shapes with index_add_ beside it, and B6 on
+    mixed rows and on the first fold round's stand-in, each held to its
+    plain version first."""
+    import numpy as np
+    import torch
+    from veneur_tpu_torch.ops import compactor_eval as ce
+    from veneur_tpu_torch.ops import segmented_reduce as sr
+    out = []
+    for u, c, g in (cs.MAIN_SHAPE["segment_sums"], (131072, 128, 1024)):
+        vals, seg = cs.seg_rows(u, c, g, gen, dev)
+        cs.check_segment_sums(vals, seg, g)
+        out.append(("segment_sums", [u, c, g],
+                    lambda a=(vals, seg, g): sr.launch(*a)))
+        out.append(("segment_sums index_add_", [u, c, g],
+                    lambda a=(vals, seg, g): torch.zeros(
+                        (a[2], a[0].shape[1]), device=dev).index_add_(
+                        0, a[1], a[0])))
+    u, levels, s2 = cs.MAIN_SHAPE["compact_batch"]
+    rng = np.random.default_rng(3)
+    for what, rows in (("mixed", cs.compactor_rows),
+                       ("first fold", cs.first_fold_rows)):
+        args = rows(u, s2 // 2, levels, gen, dev, rng)
+        if what == "mixed":
+            args = args[0]
+        cs.check_compact(args)
+        out.append((f"compact_batch {what}", [u, levels, s2],
+                    lambda a=args: ce.compact_batch(*a)))
     return out
 
 
@@ -113,7 +151,7 @@ def run_tree(tree: Path) -> dict:
         for name, shape, fn in _cases(cs, se, sv, gen, dev):
             spin = cs.cuda_ms(fn)
             nospin = cs.cuda_ms(fn, slack=0)
-            times[f"{name} {shape[0]}x{shape[1]}"] = {
+            times[f"{name} {'x'.join(map(str, shape))}"] = {
                 "spin_ms": spin, "nospin_ms": nospin}
     return {"tree": str(tree), "times": times,
             "build_s": {k: v["seconds"] for k, v in built.items()}}
