@@ -122,6 +122,10 @@ CUBE_RULES = [{"match": "cqm.*", "family": "moments"}]
 # C_REORDER * D * 2^-24 * sum|w| of the row (both sum the same terms,
 # each |w * T_j| <= |w|, in another order)
 C_REORDER = 2.0
+# depths B5 is held to its plain version at beside the flush's powers of
+# two: a ragged last group of four columns, and row widths whose lane
+# group is not D / 16
+B5_ODD_DS = (5, 63, 100)
 # a flush through B5 against the same flush through its plain version:
 # each quantile within this fraction of the row's [min, max] span
 SOLVER_RULE = 1e-3
@@ -770,6 +774,65 @@ def check_uniform(args, integer: bool, got=None) -> float:
     return float(diff.max())
 
 
+def b5_checks(us, mds, gen, dev, err: dict) -> None:
+    """B5 (both variants) against its plain version (check_moments:
+    t-grid rows bitwise, gamma rows within the C_REORDER bound): at k =
+    MOMENTS_K at every U x D of the grid; at k = 2 and 16 at every D of
+    the grid and B5_ODD_DS, and at k = 8 on B5_ODD_DS (4096 rows); then
+    a row's bits alone (its own launch) and inside a 300-row batch, and
+    rows that start off a 16-byte boundary (the kernel's 4-byte load
+    path) against the same rows aligned.  Raises `err` per variant."""
+    import torch
+    from veneur_tpu_torch.ops import moments_eval as me
+    worst_ratio = 0.0
+    for u in us:
+        for d in mds:
+            for grid in (True, False):
+                for depth in (False, True):
+                    diff, ratio = check_moments(
+                        moment_rows(u, d, gen, dev, grid, depth), grid)
+                    name = "moments_sums_depth" if depth else "moments_sums"
+                    err[name] = max(err[name], diff)
+                    worst_ratio = max(worst_ratio, ratio)
+        log(f"B5 == plain at U={u} D={d} for D in {mds} (t-grid bitwise, "
+            f"gamma within {C_REORDER} D 2^-24 sum|w|)")
+    odd = tuple(d for d in B5_ODD_DS if d not in mds)
+    for k, kds in ((2, mds + odd), (8, B5_ODD_DS), (16, mds + odd)):
+        for d in kds:
+            for grid in (True, False):
+                for depth in (False, True):
+                    _, ratio = check_moments(
+                        moment_rows(4096, d, gen, dev, grid, depth), grid, k)
+                    worst_ratio = max(worst_ratio, ratio)
+    log(f"B5 == plain at k = 2 and 16 (4096 x D for D in {mds + odd}) and "
+        f"k = 8 (D in {B5_ODD_DS}); largest gamma difference "
+        f"{worst_ratio:.4f} of its bound")
+    for d in (3, 64, 512):
+        for depth in (False, True):
+            dv, dw, ab, lab, _ = moment_rows(300, d, gen, dev, False, depth)
+            with _not_counted():
+                batch = me.moments_sums(dv, dw, ab, lab, MOMENTS_K, depth)
+                for i in (0, 1, 150, 299):
+                    one = me.moments_sums(
+                        dv[i:i + 1], dw[i:i + 1],
+                        ab[:, i:i + 1].contiguous(),
+                        lab[:, i:i + 1].contiguous(), MOMENTS_K, depth)
+                    require(_same_bits(one[0], batch[i]),
+                            f"B5 row {i} of 300 x {d} (depth={depth}) "
+                            f"alone != in its batch")
+                # the same values one float off a 16-byte boundary
+                store = torch.empty(dv.numel() + 1, device=dev)
+                store[1:] = dv.reshape(-1)
+                off = store[1:].view(dv.shape)
+                require(off.data_ptr() % 16 != 0, "offset view aligned")
+                require(_same_bits(me.moments_sums(off, dw, ab, lab,
+                                                   MOMENTS_K, depth), batch),
+                        f"B5 300 x {d} (depth={depth}): unaligned rows != "
+                        f"aligned rows")
+    log("B5: a row alone == the row in a 300-row batch, and unaligned "
+        "rows == aligned rows, bitwise (D in (3, 64, 512), both variants)")
+
+
 def phase_kernels(us=(1, 100, 4096, 16384, 131072),
                   ds=(2, 4, 8, 64, 512, 1024),
                   mds=(1, 2, 3, 4, 8, 16, 32, 64, 128, 256, 512),
@@ -784,8 +847,9 @@ def phase_kernels(us=(1, 100, 4096, 16384, 131072),
     B1 on bf16 values at 16384 x 512, B3 on bf16 values at 131072 x
     8).  B5's grid holds every depth a flush can give it (the dense
     build pads D to a power of two from 2 to DENSE_DEPTH_CAP = 512), so
-    every lane-group size g = min(32, D) of the kernel, and two odd
-    depths; B4's every depth it takes (`cds`), B1's bf16 variant the
+    every lane-group size G = min(32, D / 16) of the kernel and both
+    output paths, and two odd depths (b5_checks adds the orders 2 and
+    16, B5_ODD_DS and the batch and alignment checks); B4's every depth it takes (`cds`), B1's bf16 variant the
     depths digest_eval gives it (`bds`, D > 64), B3's bf16 variant
     every depth (`uds`).  Integer (B5: t-grid) and gamma rows.  Then B1
     (both value types) on tied_rows at every `tus` x `tds` (U = 1
@@ -800,25 +864,7 @@ def phase_kernels(us=(1, 100, 4096, 16384, 131072),
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     err = {name: 0.0 for name in KERNEL_SOURCE}
-    worst_ratio = 0.0
-    for u in us:
-        for d in mds:
-            for grid in (True, False):
-                for depth in (False, True):
-                    diff, ratio = check_moments(
-                        moment_rows(u, d, gen, dev, grid, depth), grid)
-                    name = "moments_sums_depth" if depth else "moments_sums"
-                    err[name] = max(err[name], diff)
-                    worst_ratio = max(worst_ratio, ratio)
-        log(f"B5 == plain at U={u} D={d} for D in {mds} (t-grid bitwise, "
-            f"gamma within {C_REORDER} D 2^-24 sum|w|)")
-    for k in (2, 16):
-        for grid in (True, False):
-            for depth in (False, True):
-                check_moments(moment_rows(4096, 64, gen, dev, grid, depth),
-                              grid, k)
-    log(f"B5 == plain at k = 2 and 16 (4096 x 64); largest gamma "
-        f"difference {worst_ratio:.4f} of its bound")
+    b5_checks(us, mds, gen, dev, err)
     for u in us:
         for d in ds:
             for integer in (True, False):
@@ -2976,16 +3022,27 @@ def check_b9(args, got=None) -> float:
     return 0.0
 
 
-def phase_b9(ks=(1, 13, 4096, 131072), c=152, seed=0) -> float:
+def phase_b9(ks=(1, 13, 4096, 131072), cs=(1, 3, 5, 31, 33, 152, 1024),
+             seed=0) -> float:
+    """B9 against its plain version (check_b9, bitwise) at every K x C
+    up to the main path's 131072 x 152 entries (a wider C skips the
+    largest K): C % 4 != 0 takes the kernel's 4-byte copies, C = 152
+    and 1024 its 16-byte ones, and C = 1, 3, 5, 31, 33 leave the lanes'
+    runs of columns ragged."""
     import torch
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    for k in ks:
-        for integer in (True, False):
-            check_b9(centroid_rows(k, c, gen, dev, integer))
-    log(f"B9 == plain bitwise for K in {ks} x C = {c} (integer and gamma "
-        f"means, integer weights, empty and sparse rows)")
+    k_main, c_main = MAIN_SHAPE["quantile"]
+    for c in cs:
+        for k in ks:
+            if k * c > k_main * c_main:
+                continue
+            for integer in (True, False):
+                check_b9(centroid_rows(k, c, gen, dev, integer))
+    log(f"B9 == plain bitwise for K in {ks} x C in {cs} up to "
+        f"{k_main} x {c_main} entries (integer and gamma means, integer "
+        f"weights, empty and sparse rows)")
     return 0.0
 
 

@@ -18,6 +18,12 @@ PyTorch version).  The rules, each with its reason:
     k = 8) amplify.  A lost or doubled point still fails: it moves the
     count column (sum w, exact for integer weights) by its weight >= 1,
     and C_LOG * D * 2^-24 * sum|w| < 1 at every D <= 64 tested here;
+  * a numpy model of the CUDA kernel's summation order (`_b5_model`,
+    the plain version's per-point terms summed as the kernel's lanes
+    and butterfly sum them): bitwise the plain version on t-grid rows,
+    within C_RAW * D * 2^-24 * sum|w| of it on gamma rows, and within
+    the rule above of the Pallas kernel; a row's bits the same alone
+    and inside a batch;
   * the solver fed the SAME sums: quantiles within SOLVE_SAME of the
     row's span (matrix products and cumulative sums add in another
     order; 16 damped Newton steps carry that into the quantiles);
@@ -30,6 +36,9 @@ PyTorch version).  The rules, each with its reason:
 Test rows keep away from the log-domain gate (`use_log` in
 `_maxent_quantiles`), where a last-ulp difference flips a row's domain.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -253,6 +262,129 @@ def test_b5_wrapper_takes_the_plain_version_only_on_the_cpu():
         me.moments_sums(torch.as_tensor(dv), torch.as_tensor(dep),
                         torch.as_tensor(ab), torch.as_tensor(lab).to("meta"),
                         8, True)
+
+
+# ---------------------------------------------------------------------------
+# a numpy model of B5's kernel (ops/csrc/moments_eval.cu): the plain
+# version's per-point terms, summed in the kernel's split and combine order
+# ---------------------------------------------------------------------------
+
+_B5_SRC = Path(me.__file__).parent / "csrc" / "moments_eval.cu"
+
+
+def _b5_lane_points() -> int:
+    """The kernel's kLanePoints, read from its source."""
+    return int(re.search(r"constexpr int kLanePoints = (\d+);",
+                         _B5_SRC.read_text()).group(1))
+
+
+def _b5_lanes(d: int) -> int:
+    """Lanes a row, G = min(32, the largest power of two <= max(1,
+    D / kLanePoints)): a function of D alone."""
+    g, pts = 1, _b5_lane_points()
+    while g < 32 and pts * 2 * g <= d:
+        g *= 2
+    return g
+
+
+def _b5_model(dv, dw, ab, lab, uniform, k=8):
+    """B5 as the kernel sums: each point's 2(k+1) terms from the plain
+    version (a one-column row a point, so its sum is the term), then
+    lane l of the row's G lanes adds its quads l, l + G, ... (four
+    columns each, in column order) from 0.0 in float32, and an xor
+    butterfly (offsets G/2 .. 1) adds the lanes' partials."""
+    u, d = dv.shape
+    if uniform:
+        w = (np.arange(d)[None, :] < dw.astype(np.int64)[:, None])
+        w = w.astype(np.float32)
+    else:
+        w = dw
+    rep = lambda x: np.ascontiguousarray(np.repeat(x, d, axis=1))
+    terms = me.moments_sums_plain(
+        torch.as_tensor(dv.reshape(-1, 1)), torch.as_tensor(
+            w.reshape(-1, 1)), torch.as_tensor(rep(ab)),
+        torch.as_tensor(rep(lab)), k, False).numpy().reshape(u, d, -1)
+    g = _b5_lanes(d)
+    part = np.zeros((g, u, terms.shape[2]), np.float32)
+    for lane in range(g):
+        for q in range(lane, (d + 3) // 4, g):
+            for c in range(4 * q, min(4 * q + 4, d)):
+                part[lane] = part[lane] + terms[:, c]
+    off = g // 2
+    while off:
+        part = part + part[np.arange(g) ^ off]
+        off //= 2
+    return part[0]
+
+
+def test_b5_lane_groups_depend_on_depth_alone():
+    """About kLanePoints points a lane: G = 1 up to D = 31, 4 at the
+    flush's D = 64, 32 from D = 512 on."""
+    assert _b5_lane_points() == 16
+    got = {d: _b5_lanes(d) for d in (1, 3, 16, 31, 32, 63, 64, 100, 512,
+                                     1024)}
+    assert got == {1: 1, 3: 1, 16: 1, 31: 1, 32: 2, 63: 2, 64: 4, 100: 4,
+                   512: 32, 1024: 32}
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+@pytest.mark.parametrize("k", [2, 8, 16])
+def test_b5_kernel_order_is_bitwise_on_t_grid_rows(k, uniform):
+    """Exact sums: the kernel's order gives the plain version's bits at
+    every depth the lane split treats apart."""
+    rng = np.random.default_rng(20 + k)
+    for d in (1, 2, 3, 4, 5, 8, 16, 64, 512):
+        dv, dw, ab, lab, _ = _dense(rng, 24, d, uniform, grid=True)
+        want = _port_sums(dv, dw, ab, lab, uniform, k)
+        got = _b5_model(dv, dw, ab, lab, uniform, k)
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+        assert want[:, 0].sum() > 0
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+@pytest.mark.parametrize("d", [3, 5, 64, 512])
+def test_b5_kernel_order_within_the_reorder_bound(d, uniform):
+    """Gamma rows: every column within C_RAW * D * 2^-24 * sum|w| of
+    the plain version (chip_smoke's C_REORDER rule), at k = 2, 8, 16."""
+    rng = np.random.default_rng(30 + d)
+    for k in (2, 8, 16):
+        dv, dw, ab, lab, w = _dense(rng, 40, d, uniform)
+        got = _b5_model(dv, dw, ab, lab, uniform, k)
+        want = _port_sums(dv, dw, ab, lab, uniform, k)
+        unit = d * 2.0 ** -24 * np.abs(w).sum(1)[:, None]
+        assert (np.abs(got - want) <= C_RAW * unit).all()
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+def test_b5_kernel_order_matches_pallas_interpret(uniform):
+    rng = np.random.default_rng(7)
+    dv, dw, ab, lab, w = _dense(rng, 256, 64, uniform)
+    pal = np.asarray(jme._moments_sums_pallas(
+        jnp.asarray(dv), jnp.asarray(dw), jnp.asarray(ab), jnp.asarray(lab),
+        8, uniform, interpret=True))
+    _within(_b5_model(dv, dw, ab, lab, uniform), pal, w)
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+def test_b5_row_bits_do_not_depend_on_the_batch(uniform):
+    """A row alone gives the bits it gets inside a 300-row batch, in
+    the kernel's order and in the plain version the CPU path runs (the
+    meshed moments flush solves slices of rows)."""
+    rng = np.random.default_rng(8)
+    for d in (3, 64):
+        dv, dw, ab, lab, _ = _dense(rng, 300, d, uniform)
+        model = _b5_model(dv, dw, ab, lab, uniform)
+        plain = _port_sums(dv, dw, ab, lab, uniform)
+        for i in (0, 1, 150, 299):
+            one = (dv[i:i + 1], dw[i:i + 1], np.ascontiguousarray(
+                ab[:, i:i + 1]), np.ascontiguousarray(lab[:, i:i + 1]))
+            np.testing.assert_array_equal(
+                _b5_model(*one, uniform)[0].view(np.int32),
+                model[i].view(np.int32))
+            np.testing.assert_array_equal(
+                _port_sums(*one, uniform)[0].view(np.int32),
+                plain[i].view(np.int32))
 
 
 # ---------------------------------------------------------------------------

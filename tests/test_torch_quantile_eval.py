@@ -20,6 +20,10 @@ Tolerances:
     add, product and quotient on its own; every prefix sum is exact),
     and within the first item's rtol 1e-5 / atol 1e-4 of the XLA twin,
     which contracts on the CPU.
+  * a numpy model of the CUDA kernel's lane-segmented scan and count
+    (`_b9_model`): bitwise the plain version on integer weights at every
+    C tested (every prefix sum exact), and within the first item's
+    tolerance of the Pallas kernel on gamma means.
 """
 
 import numpy as np
@@ -162,3 +166,112 @@ def test_cpu_tensors_never_count_a_launch_and_bad_inputs_raise():
         m = torch.zeros((2, 8), device="meta")
         qe.quantile(m, m, v.to("meta"), v.to("meta"),
                     torch.tensor([0.5], device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# a numpy model of B9's kernel (ops/csrc/quantile_eval.cu): one scan a row
+# over lane-owned runs of columns, then a count a quantile
+# ---------------------------------------------------------------------------
+
+def _b9_cum(weight):
+    """The kernel's prefix sums in float32: lane l (of 32) owns the m =
+    ceil(C / 32) | 1 columns [m*l, m*l + m) and sums them in order from
+    0.0; a shuffle scan (x += x of lane - o for o = 1, 2, .., 16) of the
+    32 lane totals gives lane l the total of the lanes before it; each
+    column's prefix sum is that offset + the lane's running sum."""
+    f = np.float32
+    k, c = weight.shape
+    m = ((c + 31) // 32) | 1
+    tot = np.zeros((k, 32), f)
+    local = np.zeros((k, c), f)
+    for lane in range(32):
+        run = np.zeros(k, f)
+        for col in range(min(m * lane, c), min(m * lane + m, c)):
+            run = run + weight[:, col]
+            local[:, col] = run
+        tot[:, lane] = run
+    incl = tot.copy()
+    for o in (1, 2, 4, 8, 16):
+        prev = incl.copy()
+        incl[:, o:] = prev[:, o:] + prev[:, :-o]
+    offset = np.concatenate([np.zeros((k, 1), f), incl[:, :-1]], axis=1)
+    owner = np.minimum(np.arange(c) // m, 31)
+    return offset[:, owner] + local
+
+
+def _b9_model(mean, weight, dmin, dmax, qs):
+    """B9 as the kernel computes it: _b9_cum's prefix sums, then for
+    each quantile the count of columns below q * total (total = the
+    last column's prefix sum) and merging_digest.go's interpolation."""
+    f = np.float32
+    k, c = mean.shape
+    cum = _b9_cum(weight)
+    out = np.full((k, len(qs)), np.nan, f)
+    for r in range(k):
+        n = int((weight[r] > 0).sum())
+        if n == 0:
+            continue
+
+        def upper(j):
+            if j >= n - 1:
+                return dmax[r]
+            nxt = mean[r, j + 1] if j + 1 < c else mean[r, c - 1]
+            return f(0.5) * (mean[r, j] + nxt)
+
+        for p, q in enumerate(qs):
+            target = f(q) * cum[r, -1]
+            i = min(int((cum[r] < target).sum()), max(n - 1, 0))
+            lo = dmin[r] if i == 0 else upper(i - 1)
+            before = f(0.0) if i == 0 else cum[r, i - 1]
+            w_i = weight[r, i]
+            prop = (target - before) / w_i if w_i > 0 else f(0.0)
+            prop = min(max(prop, f(0.0)), f(1.0))
+            out[r, p] = lo + prop * (upper(i) - lo)
+    return out
+
+
+def _integer_rows(rng, k, c):
+    """Sorted distinct integer means with integer weights 1..50: row 0
+    empty, row 1 one centroid, row 2 full, the rest 0..C centroids."""
+    mean = np.zeros((k, c), np.float32)
+    weight = np.zeros((k, c), np.float32)
+    for row in range(1, k):
+        n = {1: 1, 2: c}.get(row, int(rng.integers(0, c + 1)))
+        mean[row, :n] = np.sort(rng.choice(4 * c + 8, n, replace=False))
+        weight[row, :n] = rng.integers(1, 51, n)
+    occ = weight > 0
+    dmin = np.where(occ.any(1), np.where(occ, mean, np.inf).min(1) - 0.5,
+                    np.inf).astype(np.float32)
+    dmax = np.where(occ.any(1), np.where(occ, mean, -np.inf).max(1) + 0.5,
+                    -np.inf).astype(np.float32)
+    return mean, weight, dmin, dmax
+
+
+def _same_bits(a, b):
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    np.testing.assert_array_equal(np.where(np.isnan(a), 0, a).view(np.int32),
+                                  np.where(np.isnan(b), 0, b).view(np.int32))
+
+
+@pytest.mark.parametrize("c", [1, 3, 31, 32, 33, 152, 1024])
+def test_b9_lane_scan_is_bitwise_on_integer_weights(c):
+    """Every prefix sum is exact, so the kernel's association gives the
+    plain version's bits, C below, at and above a lane's worth of
+    columns and at the default compression's 152."""
+    mean, weight, dmin, dmax = _integer_rows(np.random.default_rng(c), 12,
+                                             c)
+    np.testing.assert_array_equal(_b9_cum(weight),
+                                  np.cumsum(weight, axis=1,
+                                            dtype=np.float32))
+    _same_bits(_b9_model(mean, weight, dmin, dmax, QS),
+               _port(mean, weight, dmin, dmax))
+
+
+def test_b9_lane_scan_matches_pallas_interpret_on_gamma_means():
+    mean, weight, dmin, dmax = _states(24, np.random.default_rng(11))
+    got = _b9_model(mean, weight, dmin, dmax, QS)
+    pallas = np.asarray(jqe.quantile(*(jnp.asarray(a) for a in
+                                       (mean, weight, dmin, dmax)),
+                                     jnp.asarray(QS), interpret=True))
+    assert np.isnan(got[-1]).all() and np.isnan(pallas[-1]).all()
+    np.testing.assert_allclose(got[:-1], pallas[:-1], rtol=1e-5, atol=1e-4)

@@ -1,15 +1,19 @@
 """Two checkouts' kernels timed side by side on one card.
 
 Times every kernel built from `ops/csrc/sorted_eval.cu`,
-`sort_network.cuh` and `sort_variants.cu` (B1-B4, H1-H3), and B6
-(`compactor_eval.cu`) and B7 (`segmented_reduce.cu`), at
-`chip_smoke.py`'s shapes, in a parent checkout and in this one, each in
-processes of its own in the order parent, change, change, parent.  B7
+`sort_network.cuh` and `sort_variants.cu` (B1-B4, H1-H3), B6
+(`compactor_eval.cu`), B7 (`segmented_reduce.cu`), B5
+(`moments_eval.cu`) and B9 (`quantile_eval.cu`), at `chip_smoke.py`'s
+shapes, in a parent checkout and in this one, each in processes of its
+own in the order parent, change, change, parent.  B7
 runs at both of chip_smoke's `b7_times` shapes on `seg_rows` (the cube
 read's 4096 x 20 -> 256 and 131072 x 128 -> 1024), each beside
 `index_add_` (one PyTorch call of the same sums, the same in both
 trees); B6 at 16384 x 14 x 256 on `compactor_rows`' mixed rows and on
 `first_fold_rows`, a stand-in for the compactor flush's first launch.
+B5 runs both variants at the moments flush's 131072 x 64 (k = 8) and
+the weights variant at 16384 x 512, on `moment_rows`' gamma rows; B9 at
+131072 x 152 with 6 quantiles on `centroid_rows`' gamma means.
 Every kernel is held to its plain version first (chip_smoke's checks),
 then timed by chip_smoke's `cuda_ms` both ways: with its spin before the
 opening event (the device's work alone) and without it (`slack=0`, the
@@ -97,7 +101,7 @@ def _cases(cs, se, sv, gen, dev):
         cs.check_variants(vm, vw)
         out.append((f"sort_variant {mode}", [u, vd],
                     lambda m=mode, a=(vm, vw): sv.sort_variant(*a, m)))
-    return out + _b6_b7_cases(cs, gen, dev)
+    return out + _b6_b7_cases(cs, gen, dev) + _b5_b9_cases(cs, gen, dev)
 
 
 def _b6_b7_cases(cs, gen, dev):
@@ -128,6 +132,27 @@ def _b6_b7_cases(cs, gen, dev):
         cs.check_compact(args)
         out.append((f"compact_batch {what}", [u, levels, s2],
                     lambda a=args: ce.compact_batch(*a)))
+    return out
+
+
+def _b5_b9_cases(cs, gen, dev):
+    """B5 (both variants) at kernel_times' three shapes and B9 at its
+    main-path shape, each held to its plain version first."""
+    from veneur_tpu_torch.ops import moments_eval as me
+    from veneur_tpu_torch.ops import quantile_eval as qe
+    out = []
+    for name, u, d in (("moments_sums", 131072, 64),
+                       ("moments_sums_depth", 131072, 64),
+                       ("moments_sums", 16384, 512)):
+        depth = name == "moments_sums_depth"
+        rows = cs.moment_rows(u, d, gen, dev, grid=False, depth=depth)
+        cs.check_moments(rows, grid=False)
+        out.append((name, [u, d], lambda a=rows[:4] + (cs.MOMENTS_K, depth):
+                    me.moments_sums(*a)))
+    k, c = cs.MAIN_SHAPE["quantile"]
+    args = cs.centroid_rows(k, c, gen, dev, integer=False)
+    cs.check_b9(args)
+    out.append(("quantile", [k, c], lambda a=args: qe.quantile(*a)))
     return out
 
 
