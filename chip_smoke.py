@@ -2939,7 +2939,8 @@ def hll_rows(s, p, gen, dev):
 def check_b8(regs, got=None) -> float:
     """B8 against its plain version: zero counts exact, the sums of
     2^-r within rtol 1e-6 (the same powers of two added in another
-    order).  Returns the largest relative difference of the sums."""
+    order; a row whose plain sum is 0, every register >= 150, must read
+    0).  Returns the largest absolute difference."""
     import torch
     from veneur_tpu_torch.ops import hll_estimate as he
     if got is None:
@@ -2947,16 +2948,36 @@ def check_b8(regs, got=None) -> float:
             got = he.register_moments(regs)
     ref = he.register_moments_plain(regs)
     torch.cuda.synchronize()
-    rel = float(((got[:, 1] - ref[:, 1]).abs() / ref[:, 1]).max())
-    require(torch.equal(got[:, 0], ref[:, 0]) and rel <= 1e-6,
+    zero = ref[:, 1] == 0
+    rel = float(((got[:, 1] - ref[:, 1]).abs()
+                 / torch.where(zero, 1.0, ref[:, 1])).max())
+    same_zeros = torch.equal(got[:, 0], ref[:, 0])
+    require(same_zeros and rel <= 1e-6
+            and torch.equal(got[zero, 1], ref[zero, 1]),
             f"register_moments {tuple(regs.shape)}: zero counts "
-            f"{'equal' if torch.equal(got[:, 0], ref[:, 0]) else 'differ'}"
-            f", sums off by {rel:.3g} relative")
+            f"{'equal' if same_zeros else 'differ'}, sums off by "
+            f"{rel:.3g} relative")
     return float((got - ref).abs().max())
 
 
-def phase_b8(ss=(1, 5, 16, 10000), ps=(11, 14), seed=0) -> float:
+def wide_register_rows(s, m, gen, dev, low=0):
+    """B8 inputs outside what a hashed member sets: registers uniform in
+    [low, 255], so rows of low = 0 mix 2^-r of every byte, and rows of
+    low = 127 (150) sum only denormals (zeros)."""
     import torch
+    return torch.randint(low, 256, (s, m), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+
+
+def phase_b8(ss=(1, 5, 16, 10000), ps=(11, 14), seed=0) -> float:
+    """B8 against its plain version (check_b8) on geometric registers at
+    every S x p; on registers across 0-255 (127-255: the denormal terms;
+    150-255: sums of 0); on rows whose m is not a multiple of 16 (the
+    byte path); on rows one byte past 16-byte alignment, which must
+    also read bitwise as the aligned copy; and a row alone bitwise the
+    same row inside the batch of 10,000."""
+    import torch
+    from veneur_tpu_torch.ops import hll_estimate as he
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -2964,8 +2985,34 @@ def phase_b8(ss=(1, 5, 16, 10000), ps=(11, 14), seed=0) -> float:
     for s in ss:
         for p in ps:
             err = max(err, check_b8(hll_rows(s, p, gen, dev)))
-    log(f"B8 == plain for S in {ss} x p in {ps} (zero counts exact, sums "
-        f"within rtol 1e-6)")
+    for low in (0, 127, 150):
+        for s, m in ((16, 16384), (5, 2048), (3, 1000)):
+            err = max(err, check_b8(wide_register_rows(s, m, gen, dev, low)))
+    base = hll_rows(64, 14, gen, dev)
+    for m in (1, 15, 17, 100, 1000, 16383):
+        err = max(err, check_b8(base[:, :m].contiguous()))
+    with _not_counted():
+        for s, m in ((1, 16384), (64, 16384), (7, 2048), (3, 1000)):
+            regs = base[:s, :m].contiguous()
+            buf = torch.zeros(s * m + 16, dtype=torch.uint8, device=dev)
+            view = buf[1:1 + s * m].view(s, m)
+            view.copy_(regs)
+            require(view.data_ptr() % 16 == 1, "B8: the view is aligned")
+            got = he.register_moments(view)
+            err = max(err, check_b8(view, got))
+            require(_same_bits(got, he.register_moments(regs)),
+                    f"B8 {s} x {m}: unaligned rows != aligned rows")
+        big = hll_rows(10000, 14, gen, dev)
+        batch = he.register_moments(big)
+        err = max(err, check_b8(big, batch))
+        for i in (0, 1, 4999, 9998, 9999):
+            require(_same_bits(he.register_moments(big[i:i + 1]),
+                               batch[i:i + 1]),
+                    f"B8 row {i}: alone != in its batch of 10000")
+    log(f"B8 == plain for S in {ss} x p in {ps}, on registers across "
+        f"0-255, 127-255 and 150-255, at m in (1, 15, 17, 100, 1000, "
+        f"16383) (zero counts exact, sums within rtol 1e-6); unaligned "
+        f"rows bitwise aligned ones; rows alone bitwise their batch")
     return err
 
 
@@ -3022,27 +3069,97 @@ def check_b9(args, got=None) -> float:
     return 0.0
 
 
+def sampled_centroid_rows(k, c, gen, dev):
+    """B9 inputs with the weights a sampled DogStatsD line stages:
+    centroid_rows' gamma rows with each integer weight over a rate of
+    0.1, 0.3, 0.7 or 0.9, so the prefix sums round."""
+    import torch
+    mean, weight, dmin, dmax, qs = centroid_rows(k, c, gen, dev, False)
+    rates = torch.tensor([0.1, 0.3, 0.7, 0.9], device=dev)
+    rate = rates[torch.randint(0, 4, (k, c), generator=gen, device=dev)]
+    return mean, (weight / rate).contiguous(), dmin, dmax, qs
+
+
+def b9_prefix_bound(mean, weight, dmin, dmax):
+    """Per row, the largest quantile difference two association orders
+    of the prefix sums can make (tests/test_torch_quantile_eval.py
+    `_prefix_bound`): each order is within (adds) 2^-24 W of the exact
+    sums (W the row's total; C adds for the plain version's cumsum, m +
+    6 for the kernel's lane scan), so they differ by delta = (C + m + 6)
+    2^-24 W; a quantile's proportion then moves by 2 delta / w_i and its
+    value by 2 delta span_i / w_i, twice that where the orders pick
+    neighbouring centroids; plus 2 ulp of the row's range."""
+    import torch
+    k, c = mean.shape
+    m = ((c + 31) // 32) | 1
+    mean, weight = mean.double(), weight.double()
+    n = (weight > 0).sum(1, keepdim=True)
+    col = torch.arange(c, device=mean.device)[None, :]
+    mid = 0.5 * (mean[:, :-1] + mean[:, 1:])
+    up = torch.where(col < n - 1, torch.nn.functional.pad(mid, (0, 1)),
+                     dmax.double()[:, None])
+    lo = torch.where(col == 0, dmin.double()[:, None],
+                     torch.nn.functional.pad(mid, (1, 0)))
+    ratio = torch.where(col < n, (up - lo) / weight.clamp_min(1e-30), 0.0)
+    delta = (c + m + 6) * 2.0 ** -24 * weight.sum(1)
+    edge = torch.maximum(dmin.abs(), dmax.abs()).float()
+    ulp = (torch.nextafter(edge, torch.full_like(edge, float("inf")))
+           - edge).double()
+    return 4 * delta * ratio.amax(1) + 2 * ulp
+
+
+def check_b9_sampled(args) -> tuple[float, float]:
+    """B9 on sampled weights against its plain version: NaN in the same
+    places (empty rows), every other quantile within b9_prefix_bound of
+    its row.  Returns (largest difference, largest share of its
+    bound)."""
+    import torch
+    from veneur_tpu_torch.ops import quantile_eval as qe
+    with _not_counted():
+        got = qe.quantile(*args)
+    ref = qe.quantile_plain(*args)
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    require(torch.equal(nan, torch.isnan(got)),
+            f"quantile {tuple(args[0].shape)} sampled: NaN placement")
+    bound = b9_prefix_bound(*args[:4])[:, None].expand_as(ref)[~nan]
+    diff = (got.double() - ref.double())[~nan].abs()
+    share = float((diff / bound).max()) if diff.numel() else 0.0
+    require(share <= 1.0, f"quantile {tuple(args[0].shape)} sampled: "
+                          f"{share:.3g} of the prefix-sum bound")
+    return (float(diff.max()) if diff.numel() else 0.0), share
+
+
 def phase_b9(ks=(1, 13, 4096, 131072), cs=(1, 3, 5, 31, 33, 152, 1024),
              seed=0) -> float:
     """B9 against its plain version (check_b9, bitwise) at every K x C
     up to the main path's 131072 x 152 entries (a wider C skips the
     largest K): C % 4 != 0 takes the kernel's 4-byte copies, C = 152
     and 1024 its 16-byte ones, and C = 1, 3, 5, 31, 33 leave the lanes'
-    runs of columns ragged."""
+    runs of columns ragged.  At each shape also sampled weights
+    (check_b9_sampled: within the prefix sums' rounding bound)."""
     import torch
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     k_main, c_main = MAIN_SHAPE["quantile"]
+    worst, share = (0.0, 0, 0), 0.0
     for c in cs:
         for k in ks:
             if k * c > k_main * c_main:
                 continue
             for integer in (True, False):
                 check_b9(centroid_rows(k, c, gen, dev, integer))
+            diff, part = check_b9_sampled(sampled_centroid_rows(k, c, gen,
+                                                                dev))
+            worst, share = max(worst, (diff, k, c)), max(share, part)
     log(f"B9 == plain bitwise for K in {ks} x C in {cs} up to "
         f"{k_main} x {c_main} entries (integer and gamma means, integer "
         f"weights, empty and sparse rows)")
+    log(f"B9 on sampled weights (integer / 0.1 .. 0.9) within the "
+        f"prefix-sum bound of the plain version: largest difference "
+        f"{worst[0]:.6g} at {worst[1]} x {worst[2]}, largest share of a "
+        f"row's bound {share:.3g}")
     return 0.0
 
 

@@ -13,6 +13,10 @@ Tolerances:
     the estimator tail's division, of the estimate before its floor).
   * accuracy against the true cardinality: 2%, the standard HLL error
     bound (~1.04/sqrt(m)) at p = 14 with margin, as tests/test_ops.py.
+  * a numpy model of the CUDA kernel's summation order (`_b8_model`,
+    the order depends on m alone): the same rules as the plain version
+    against the Pallas kernel, and against the plain version also on
+    rows of denormal terms, which the JAX package's CPU run flushes.
 """
 
 import numpy as np
@@ -94,3 +98,81 @@ def test_cpu_tensors_never_count_a_launch_and_bad_inputs_raise():
     with pytest.raises(ValueError, match="unsupported device"):
         he.register_moments(torch.zeros((2, 16), dtype=torch.uint8,
                                         device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# a numpy model of B8's kernel (ops/csrc/hll_estimate.cu): a warp a row
+# ---------------------------------------------------------------------------
+
+def _b8_model(regs):
+    """B8's sum of 2^-r in the kernel's order, float32: lane l of 32
+    takes the row's 16-byte quads l, l + 32, ...; each quad's word k
+    (bytes 4k .. 4k + 3, a byte past the row adding 0) sums as (t0 + t1)
+    + (t2 + t3) into the lane's accumulator k, quad after quad; the
+    lane's total is (a0 + a1) + (a2 + a3), then an xor butterfly over
+    the lanes (o = 16, 8, 4, 2, 1).  2^-r is exact in float32 for every
+    byte: normal to r = 126, denormal to 149, then 0.  -> [S, 2] (zero
+    count, sum)."""
+    f = np.float32
+    s, m = regs.shape
+    quads = -(-m // 16)
+    per = -(-quads // 32)                    # quads a lane
+    r = np.zeros((s, 32 * per * 16), np.int64)
+    r[:, :m] = regs
+    t = np.ldexp(f(1.0), -r).astype(f)
+    t[:, m:] = 0.0
+    t = t.reshape(s, per, 32, 4, 4)          # [row, j, lane, word, byte]
+    words = (t[..., 0] + t[..., 1]) + (t[..., 2] + t[..., 3])
+    acc = np.zeros((s, 32, 4), f)
+    for j in range(per):
+        acc = acc + words[:, j]
+    lane = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+    for o in (16, 8, 4, 2, 1):
+        lane = lane + lane[:, np.arange(32) ^ o]
+    return np.stack([(regs == 0).sum(1).astype(f), lane[:, 0]], axis=1)
+
+
+def _b8_rows(kind, s, m, rng):
+    if kind == "geometric":
+        p = max(4, (m - 1).bit_length())
+        return np.ascontiguousarray(_registers(s, p, rng)[:, :m])
+    return rng.integers(0, 256, (s, m)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind,s,m", [("geometric", 5, 1 << 14),
+                                      ("bytes 0-255", 8, 2048),
+                                      ("bytes 0-255", 6, 100),
+                                      ("geometric", 7, 1000)])
+def test_b8_kernel_order_matches_pallas(kind, s, m):
+    """The kernel's order against the JAX package's kernel (interpret
+    mode) and the plain version: zero counts exact, sums within rtol
+    1e-6, on hashed rows and on bytes up to 255 (2^-r past r = 126 is
+    denormal, and 0 from 150), at m a multiple of 16 or not."""
+    regs = _b8_rows(kind, s, m, np.random.default_rng(m + s))
+    got = _b8_model(regs)
+    want = np.asarray(jhe.register_moments(jnp.asarray(regs),
+                                           interpret=True))
+    plain = he.register_moments_plain(torch.from_numpy(regs)).numpy()
+    for ref in (want, plain):
+        np.testing.assert_array_equal(got[:, 0], ref[:, 0])
+        np.testing.assert_allclose(got[:, 1], ref[:, 1], rtol=1e-6)
+
+
+def test_b8_kernel_order_keeps_denormal_terms():
+    """Rows of registers 127..255 sum denormal terms alone: the model
+    holds the plain version's zero counts exactly and its sums within
+    rtol 1e-6 (past 2^-126 the partial sums are normal and round), and
+    rows of 150..255 sum to 0 in both.  The JAX package on the CPU
+    flushes denormals, so it reads 0 for either."""
+    rng = np.random.default_rng(7)
+    regs = np.concatenate([rng.integers(127, 256, (3, 2048)),
+                           rng.integers(150, 256, (2, 2048))]).astype(
+                               np.uint8)
+    got = _b8_model(regs)
+    plain = he.register_moments_plain(torch.from_numpy(regs)).numpy()
+    np.testing.assert_array_equal(got[:, 0], plain[:, 0])
+    np.testing.assert_allclose(got[:, 1], plain[:, 1], rtol=1e-6)
+    assert (got[:3, 1] > 0).all() and (got[3:, 1] == 0).all()
+    want = np.asarray(jhe.register_moments(jnp.asarray(regs),
+                                           interpret=True))
+    np.testing.assert_array_equal(want[:, 1], 0.0)

@@ -24,6 +24,11 @@ Tolerances:
     (`_b9_model`): bitwise the plain version on integer weights at every
     C tested (every prefix sum exact), and within the first item's
     tolerance of the Pallas kernel on gamma means.
+  * sampled weights (integer counts over a rate of 0.1 .. 0.9): the
+    prefix sums round, differently in each order; the model and the XLA
+    twin each stay within `_prefix_bound` of the plain version, the
+    largest quantile move that two orders' rounding of the prefix sums
+    can make on that row.
 """
 
 import numpy as np
@@ -275,3 +280,71 @@ def test_b9_lane_scan_matches_pallas_interpret_on_gamma_means():
                                      jnp.asarray(QS), interpret=True))
     assert np.isnan(got[-1]).all() and np.isnan(pallas[-1]).all()
     np.testing.assert_allclose(got[:-1], pallas[:-1], rtol=1e-5, atol=1e-4)
+
+
+def _sampled_rows(rng, k, c):
+    """_integer_rows' occupancy with gamma(2, 10) means (sorted) and the
+    weights a sampled DogStatsD line stages, an integer count 1..50 over
+    a rate of 0.1, 0.3, 0.7 or 0.9: the prefix sums round."""
+    _, count, _, _ = _integer_rows(rng, k, c)
+    occ = count > 0
+    rate = rng.choice(np.asarray([0.1, 0.3, 0.7, 0.9], np.float32), (k, c))
+    mean = np.sort(np.where(occ, rng.gamma(2.0, 10.0, (k, c)), np.inf), 1)
+    mean = np.where(occ, mean, 0).astype(np.float32)
+    weight = np.where(occ, count / rate, 0).astype(np.float32)
+    dmin = np.where(occ.any(1), np.where(occ, mean, np.inf).min(1) - 0.5,
+                    np.inf).astype(np.float32)
+    dmax = np.where(occ.any(1), np.where(occ, mean, -np.inf).max(1) + 0.5,
+                    -np.inf).astype(np.float32)
+    return mean, weight, dmin, dmax
+
+
+def _prefix_bound(mean, weight, dmin, dmax):
+    """Per row, the largest quantile difference two association orders
+    of the prefix sums can make.  Each order's prefix sum is within
+    (adds) * 2^-24 * W of the exact one, W the row's total: C adds for
+    the plain version's cumsum, m + 6 for the kernel's (m in the lane,
+    5 scan steps, the offset), so the two differ by at most delta =
+    (C + m + 6) 2^-24 W.  A quantile's target and the prefix sum before
+    its centroid each move by delta, so its proportion moves by 2 delta
+    / w_i and the output by 2 delta span_i / w_i (span_i = upper(i) -
+    lo(i)); where the two orders pick neighbouring centroids the output
+    moves by at most the sum for both.  Plus 2 ulp of the row's range
+    for the interpolation's own rounding."""
+    k, c = mean.shape
+    m = ((c + 31) // 32) | 1
+    out = np.zeros(k)
+    for r in range(k):
+        n = int((weight[r] > 0).sum())
+        if n == 0:
+            continue
+        mid = 0.5 * (mean[r, :n - 1].astype(np.float64) + mean[r, 1:n])
+        up = np.append(mid, dmax[r])
+        lo = np.insert(mid, 0, dmin[r])
+        delta = (c + m + 6) * 2.0 ** -24 * weight[r].astype(np.float64).sum()
+        out[r] = (4 * delta * ((up - lo) / weight[r, :n]).max()
+                  + 2 * np.spacing(np.float32(max(abs(dmin[r]),
+                                                  abs(dmax[r])))))
+    return out
+
+
+@pytest.mark.parametrize("c", [33, 152])
+def test_b9_lane_scan_on_sampled_weights_within_the_prefix_bound(c):
+    """On weights count / rate the kernel's order (`_b9_model`), the
+    plain version's cumsum and the JAX package's XLA twin round the
+    prefix sums differently: the model and the twin each agree with the
+    plain version within `_prefix_bound` (ROADMAP C13)."""
+    mean, weight, dmin, dmax = _sampled_rows(np.random.default_rng(c),
+                                             100, c)
+    qs = np.linspace(0.0, 1.0, 21).astype(np.float32)
+    plain = _port(mean, weight, dmin, dmax, qs)
+    model = _b9_model(mean, weight, dmin, dmax, qs)
+    jstate = jtd.TDigestState(*(jnp.asarray(a) for a in
+                                (mean, weight, dmin, dmax)),
+                              rsum=jnp.zeros(len(mean), jnp.float32))
+    xla = np.asarray(jtd.quantile(jstate, jnp.asarray(qs)))
+    bound = _prefix_bound(mean, weight, dmin, dmax)[:, None]
+    empty = ~(weight > 0).any(1)
+    for got in (model, xla):
+        assert np.isnan(got[empty]).all() and not np.isnan(got[~empty]).any()
+        assert (np.abs(got - plain)[~empty] <= bound[~empty]).all()

@@ -1,22 +1,17 @@
 // Device functions of the per-row sort networks, shared by the flush's
 // kernels (sorted_eval.cu: B1-B4, and the stage cuts H1/H2 built from
-// B1's own pieces), by the compactor pass (compactor_eval.cu: B6, which
-// sorts each level's staged keys with warp_bitonic) and by the
-// formulation bench (sort_variants.cu: H3), so a cut or a variant can
+// B1's own pieces) and by the compactor pass (compactor_eval.cu: B6,
+// which sorts each level's staged keys with warp_bitonic), so a cut can
 // never time a stale copy of a production stage.
 //
-// Two families.  The block functions (load_pairs, bitonic_rows,
-// row_sums, compact_word, compact_network) keep a CTA's kBlockPoints
-// points in shared memory, 1024 / D rows of D points each, D a power of
-// two in [2, 1024], and expect kThreads threads, one compare-exchange
-// each, with a __syncthreads a stage (compact_network: two points a
-// lane, shuffles, no barrier): only H3 runs them, as the formulations
-// it times.  The warp functions (stage_chunk, warp_bitonic, sort_word,
-// compact_sort_word, sorted_pairs, warp_scan,
-// warp_tree_sum) run every flush kernel of sorted_eval.cu (B1, B2, B3,
-// B4) and H1/H2: each warp of a CTA works alone on a chunk of 32 E
-// points held in registers (see lane_points), with no barrier but
-// __syncwarp.
+// The warp functions (stage_chunk, warp_bitonic, sort_word,
+// compact_sort_word, sorted_pairs, warp_scan, warp_tree_sum) run every
+// flush kernel of sorted_eval.cu (B1, B2, B3, B4) and H1/H2: each warp
+// of a CTA works alone on a chunk of 32 E points held in registers (see
+// lane_points), with no barrier but __syncwarp.  The formulation bench
+// (sort_variants.cu: H3) keeps its block functions (bitonic_rows,
+// row_sums, compact_word, compact_network) to itself and takes
+// warp_tree_sum from here.
 
 #pragma once
 
@@ -28,127 +23,9 @@
 
 namespace {
 
-constexpr int kBlockPoints = 1024;            // points per CTA
-constexpr int kThreads = kBlockPoints / 2;    // one compare-exchange each
-
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// H3's load of a CTA's block (v0, v1): key = value where the weight is
-// positive, else +inf (a hole sorts last); w = the weight, 0 past the
-// last row.  Any number of threads.
-template <typename T>
-__device__ void load_pairs(const T* __restrict__ mean,
-                           const float* __restrict__ weight, float* key,
-                           float* w, long base, long limit) {
-  for (int e = threadIdx.x; e < kBlockPoints; e += blockDim.x) {
-    float v = CUDART_INF_F, ww = 0.0f;
-    if (base + e < limit) {
-      ww = weight[base + e];
-      v = ww > 0.0f ? widen(mean[base + e]) : CUDART_INF_F;
-    }
-    key[e] = v;
-    w[e] = ww;
-  }
-}
-
-// Ascending bitonic sort of every D-long segment of key[0, 1024); when
-// `w` is given, each swap moves the weight with its key.  The direction
-// of a stage comes from the column inside the row, so the last merge
-// (k == D) sorts every row ascending.  One __syncthreads a stage.
-template <bool kPaired>
-__device__ void bitonic_rows(float* key, float* w, int d) {
-  const int t = threadIdx.x;
-  for (int k = 2; k <= d; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const int i = 2 * t - (t & (j - 1));
-      const int p = i + j;
-      const bool asc = ((i & (d - 1)) & k) == 0;
-      const float ki = key[i];
-      const float kp = key[p];
-      if (asc ? (ki > kp) : (ki < kp)) {
-        key[i] = kp;
-        key[p] = ki;
-        if constexpr (kPaired) {
-          const float wi = w[i];
-          w[i] = w[p];
-          w[p] = wi;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// The sum of every D-long row of x[0, 1024), left in the row's first
-// column, by a fixed pairwise tree: at step s = D/2, D/4, ..., 1 column
-// c < s adds column c + s.  The order depends on D alone (not on the
-// thread count), and the plain versions repeat it.  Any number of
-// threads; the caller has a barrier behind its last write of x.
-__device__ void row_sums(float* x, int d) {
-  for (int s = d >> 1; s > 0; s >>= 1) {
-    for (int e = threadIdx.x; e < kBlockPoints; e += blockDim.x) {
-      if ((e & (d - 1)) < s) x[e] = __fadd_rn(x[e], x[e + s]);
-    }
-    __syncthreads();
-  }
-}
-
-// H3's c0 word (B4's word before B4 moved to the warp network): the
-// bf16 key's bits through the monotone IEEE map (negatives flip every
-// bit, positives set the sign bit) in the high half, the column in the
-// low half, so the UNSIGNED order of the words is (value ascending,
-// column ascending) and every word of a row is distinct: sorting them
-// is a stable sort of the values.  (The TPU kernel re-centres the map
-// to sort signed words; the order is the same.)  Padding (weight <= 0)
-// keys +inf, which maps above every finite key.  -0 keys as +0: the
-// stable f32 sort of the plain version holds them equal, so their
-// columns decide, as here.  A negative-signed NaN keys below -inf, as
-// in the JAX kernel's _pack_compact; B4's compact_sort_word does not.
-__device__ __forceinline__ unsigned compact_word(__nv_bfloat16 v, float w,
-                                                 int col) {
-  unsigned b = w > 0.0f ? __bfloat16_as_ushort(v) : 0x7F80u;
-  if (b == 0x8000u) b = 0u;
-  const unsigned m16 = (b & 0x8000u) ? (0xFFFFu - b) : (b | 0x8000u);
-  return (m16 << 16) | static_cast<unsigned>(col);
-}
-
-// H3's c0 network: a row of D <= 64 points lies inside one warp's 64
-// (two per lane, lane l holding the warp's points 2l and 2l + 1), so the
-// bitonic network runs on the packed words in registers: the j == 1
-// stages compare a lane's own two words, every other stage exchanges
-// with lane l ^ (j / 2) through __shfl_xor_sync, with no barrier.
-__device__ void compact_network(unsigned word[2], int d) {
-  const int t = threadIdx.x;
-  for (int k = 2; k <= d; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      if (j == 1) {
-        // the pair (2t, 2t + 1): ascending where bit k of 2t is clear
-        const bool asc = (((2 * t) & (d - 1)) & k) == 0;
-        const unsigned lo = min(word[0], word[1]);
-        const unsigned hi = max(word[0], word[1]);
-        word[0] = asc ? lo : hi;
-        word[1] = asc ? hi : lo;
-      } else {
-        for (int s = 0; s < 2; ++s) {
-          const int i = 2 * t + s;
-          const unsigned other = __shfl_xor_sync(0xFFFFFFFFu, word[s],
-                                                 j >> 1);
-          const bool asc = ((i & (d - 1)) & k) == 0;
-          const bool lower = (i & j) == 0;
-          word[s] = (lower == asc) ? min(word[s], other)
-                                   : max(word[s], other);
-        }
-      }
-    }
-  }
-}
-
-int blocks_for(int u, int d) {
-  const int rows = kBlockPoints / d;
-  return (u + rows - 1) / rows;
 }
 
 // ---------------------------------------------------------------------------

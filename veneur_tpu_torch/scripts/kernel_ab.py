@@ -3,7 +3,8 @@
 Times every kernel built from `ops/csrc/sorted_eval.cu`,
 `sort_network.cuh` and `sort_variants.cu` (B1-B4, H1-H3), B6
 (`compactor_eval.cu`), B7 (`segmented_reduce.cu`), B5
-(`moments_eval.cu`) and B9 (`quantile_eval.cu`), at `chip_smoke.py`'s
+(`moments_eval.cu`), B9 (`quantile_eval.cu`) and B8
+(`hll_estimate.cu`), at `chip_smoke.py`'s
 shapes, in a parent checkout and in this one, each in processes of its
 own in the order parent, change, change, parent.  B7
 runs at both of chip_smoke's `b7_times` shapes on `seg_rows` (the cube
@@ -13,7 +14,9 @@ trees); B6 at 16384 x 14 x 256 on `compactor_rows`' mixed rows and on
 `first_fold_rows`, a stand-in for the compactor flush's first launch.
 B5 runs both variants at the moments flush's 131072 x 64 (k = 8) and
 the weights variant at 16384 x 512, on `moment_rows`' gamma rows; B9 at
-131072 x 152 with 6 quantiles on `centroid_rows`' gamma means.
+131072 x 152 with 6 quantiles on `centroid_rows`' gamma means; B8
+(`hll_estimate.cu`) at 10000 x 16384 on `hll_rows`' geometric
+registers.
 Every kernel is held to its plain version first (chip_smoke's checks),
 then timed by chip_smoke's `cuda_ms` both ways: with its spin before the
 opening event (the device's work alone) and without it (`slack=0`, the
@@ -101,7 +104,7 @@ def _cases(cs, se, sv, gen, dev):
         cs.check_variants(vm, vw)
         out.append((f"sort_variant {mode}", [u, vd],
                     lambda m=mode, a=(vm, vw): sv.sort_variant(*a, m)))
-    return out + _b6_b7_cases(cs, gen, dev) + _b5_b9_cases(cs, gen, dev)
+    return out + _b6_b7_cases(cs, gen, dev) + _b5_b8_b9_cases(cs, gen, dev)
 
 
 def _b6_b7_cases(cs, gen, dev):
@@ -135,9 +138,11 @@ def _b6_b7_cases(cs, gen, dev):
     return out
 
 
-def _b5_b9_cases(cs, gen, dev):
-    """B5 (both variants) at kernel_times' three shapes and B9 at its
-    main-path shape, each held to its plain version first."""
+def _b5_b8_b9_cases(cs, gen, dev):
+    """B5 (both variants) at kernel_times' three shapes, B9 and B8 at
+    their main-path shapes, each held to its plain version first."""
+    import math
+    from veneur_tpu_torch.ops import hll_estimate as he
     from veneur_tpu_torch.ops import moments_eval as me
     from veneur_tpu_torch.ops import quantile_eval as qe
     out = []
@@ -153,6 +158,11 @@ def _b5_b9_cases(cs, gen, dev):
     args = cs.centroid_rows(k, c, gen, dev, integer=False)
     cs.check_b9(args)
     out.append(("quantile", [k, c], lambda a=args: qe.quantile(*a)))
+    s, m = cs.MAIN_SHAPE["register_moments"]
+    regs = cs.hll_rows(s, int(math.log2(m)), gen, dev)
+    cs.check_b8(regs)
+    out.append(("register_moments", [s, m],
+                lambda r=regs: he.register_moments(r)))
     return out
 
 
