@@ -8,9 +8,11 @@ holds each against its plain PyTorch version on the card, drives the
 port's flush path end to end (a local and a global `Server` wired
 in-process, real DogStatsD datagrams over UDP, t-digest, moments and
 compactor histograms; a server with group-by cubes answering /query
-over HTTP; a meshed server beside an unmeshed one), then runs the
+over HTTP; a meshed server beside an unmeshed one; a local and a
+global over real gRPC, held to the in-process hop), then runs the
 full-size flushes of the north star (100k digests, and 100k moments
-sketches, per interval), of the compactor tier (16,384 ladders), the
+sketches, per interval, and 100k 64-centroid digests forwarded from a
+local to a global over gRPC), of the compactor tier (16,384 ladders), the
 group-by read over 102,400 + 102,400 series in 4,096 cube groups, the
 meshed 100k-key global flush (on a one-card mesh, and on 2 x 2 and
 2 x 3 meshes over the same card) and the moments global flush on a
@@ -1040,11 +1042,14 @@ def phase_b6(us=(1, 100, 4096, 16384), geometries=B6_GEOMETRIES,
     return err
 
 
-def _udp_send(addr, lines, srv, expect_total):
+def _udp_send(addr, lines, srv, expect_total, counts=None):
     """Send DogStatsD lines in datagrams of <= 1400 bytes, waiting for
-    the server to catch up every few datagrams so none is dropped."""
+    the server to catch up every few datagrams so none is dropped.
+    `counts[i]` is the number of metrics line i carries (a multi-value
+    line `name:v1:v2|h` carries one a value; default 1)."""
     sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     buf, sent = [], 0
+    n_of = (lambda i: 1) if counts is None else counts.__getitem__
     start = srv.aggregator.processed
 
     def wait_for(n, timeout=60.0):
@@ -1056,21 +1061,127 @@ def _udp_send(addr, lines, srv, expect_total):
                     f" of {n} lines")
             time.sleep(0.002)
 
-    size, dgrams = 0, 0
-    for line in lines:
+    size, dgrams, pending = 0, 0, 0
+    for i, line in enumerate(lines):
         if size + len(line) + 1 > 1400:
             sock.sendto(b"\n".join(buf), addr)
-            sent += len(buf)
-            buf, size, dgrams = [], 0, dgrams + 1
+            sent += pending
+            buf, size, dgrams, pending = [], 0, dgrams + 1, 0
             if dgrams % 32 == 0:
                 wait_for(sent)
         buf.append(line)
         size += len(line) + 1
+        pending += n_of(i)
     if buf:
         sock.sendto(b"\n".join(buf), addr)
-        sent += len(buf)
     sock.close()
     wait_for(expect_total)
+
+
+def _slice_lines(rng) -> dict:
+    """phase_slice's interval: ten t-digest histograms of 500 samples at
+    weight 1 and a local-only one, a sampled counter, a global-only
+    counter, a set, moments keys (`mom.*`, two past DENSE_DEPTH_CAP, one
+    local-only, one sampled) and a gauge written in order; the lines
+    shuffled but for the gauge.  Returns the lines and the samples the
+    checks hold the output to."""
+    lines, hist = [], {}
+    # <= DENSE_DEPTH_CAP samples per key: deeper keys pre-reduce
+    # into weighted centroids, and the local flush would be B1's
+    for k in range(10):
+        vals = rng.gamma(2.0, 20.0, 500)
+        kind = "h" if k % 2 == 0 else "ms"
+        hist[f"slice.lat{k}"] = vals
+        lines += [b"slice.lat%d:%.4f|%s|#svc:web" % (k, v, kind.encode())
+                  for v in vals]
+    loc = rng.gamma(2.0, 20.0, 300)
+    lines += [b"slice.loc:%.4f|h|#veneurlocalonly" % v for v in loc]
+    hist = {k: np.asarray([float("%.4f" % x) for x in v])
+            for k, v in hist.items()}
+    loc = np.asarray([float("%.4f" % x) for x in loc])
+    n_counter = 3000
+    lines += [b"slice.hits:1|c|@0.5"] * n_counter        # weight 2
+    lines += [b"slice.bytes:3|c|#veneurglobalonly"] * 500
+    n_members = 2000
+    lines += [b"slice.users:u%d|s" % i for i in range(n_members)]
+    lines += [b"slice.users:u%d|s" % i for i in range(0, n_members, 7)]
+    # moments keys: 2,400 and 2,000 samples (folded into the row's
+    # ivec on the host past DENSE_DEPTH_CAP), four keys of 300
+    # samples staged for B5, one of them sampled at rate 0.5
+    mom = {"mom.lat": rng.gamma(2.0, 20.0, 2400),
+           "mom.loc": rng.gamma(2.0, 20.0, 2000)}
+    lines += [b"mom.lat:%.4f|h" % v for v in mom["mom.lat"]]
+    lines += [b"mom.loc:%.4f|h|#veneurlocalonly" % v
+              for v in mom["mom.loc"]]
+    for i in range(4):
+        vals = rng.gamma(2.0, 20.0, 300)
+        mom[f"mom.s{i}"] = vals
+        rate = b"|@0.5" if i == 0 else b""
+        lines += [b"mom.s%d:%.4f|ms%s" % (i, v, rate) for v in vals]
+    mom = {k: np.asarray([float("%.4f" % x) for x in v])
+           for k, v in mom.items()}
+    lines = [lines[i] for i in rng.permutation(len(lines))]
+    # one reader keeps datagram order: the last gauge write wins
+    lines += [b"slice.temp:%d|g" % i for i in range(10)]
+    return {"lines": lines, "hist": hist, "loc": loc, "mom": mom,
+            "n_counter": n_counter, "n_members": n_members}
+
+
+def _check_slice(lm: dict, gm: dict, sl: dict) -> dict:
+    """Hold a local's (`lm`) and a global's (`gm`) emitted values of
+    `_slice_lines`' interval to numpy: counters and the gauge exact, the
+    set within 4 HLL standard errors, histogram count/min/max exact on
+    the local, global percentiles within 1% of numpy's Hazen, local-only
+    percentiles (B3, no compression) within 1e-5, moments count/min/max
+    exact and quantiles within MOMENTS_ENVELOPE of the span.  Returns
+    the set estimate and the worst errors."""
+    hist, loc, mom = sl["hist"], sl["loc"], sl["mom"]
+    n_members = sl["n_members"]
+    require(lm["slice.hits"] == 2 * sl["n_counter"], lm["slice.hits"])
+    require(gm["slice.bytes"] == 1500, gm["slice.bytes"])
+    require(lm["slice.temp"] == 9.0, lm["slice.temp"])
+    est = gm["slice.users"]
+    # 4 standard errors of HLL at precision 14 (1.04 / sqrt(2^14))
+    require(abs(est - n_members) <= 4 * 1.04 / 128 * n_members, est)
+    worst = 0.0
+    for name, vals in hist.items():
+        require(lm[f"{name}.count"] == len(vals), name)
+        require(abs(lm[f"{name}.min"] - vals.min()) < 1e-3, name)
+        require(abs(lm[f"{name}.max"] - vals.max()) < 1e-3, name)
+        for p in PERCENTILES:
+            want = np.percentile(vals, 100 * p, method="hazen")
+            got = gm[f"{name}.{int(p * 100)}percentile"]
+            rel = abs(got - want) / want
+            worst = max(worst, rel)
+            require(rel <= 0.01, (name, p, got, want))
+    # no compression on the local: B3's quantiles are numpy's Hazen
+    # percentiles of the f32 samples, up to f32 rounding
+    require(not any(k.startswith("slice.loc") for k in gm),
+            "a local-only histogram reached the global")
+    for p in PERCENTILES:
+        want = np.percentile(loc, 100 * p, method="hazen")
+        got = lm[f"slice.loc.{int(p * 100)}percentile"]
+        require(abs(got - want) <= 1e-5 * abs(want), (p, got, want))
+    # moments: count/min/max exact on the local; quantiles within
+    # the family's envelope of numpy's at >= 2,000 samples (the
+    # local-only key on the local, the forwarded one on the global)
+    for name, vals in mom.items():
+        weight = 2.0 if name == "mom.s0" else 1.0
+        require(lm[f"{name}.count"] == weight * len(vals), name)
+        require(lm[f"{name}.min"] == vals.min(), name)
+        require(lm[f"{name}.max"] == vals.max(), name)
+    m_worst = 0.0
+    for name, out in (("mom.lat", gm), ("mom.loc", lm)):
+        vals = mom[name]
+        span = vals.max() - vals.min()
+        for p in PERCENTILES:
+            err = abs(out[f"{name}.{int(p * 100)}percentile"]
+                      - np.quantile(vals, p)) / span
+            m_worst = max(m_worst, err)
+            require(err < MOMENTS_ENVELOPE, (name, p, err))
+    require(not any(k.startswith("mom.loc") for k in gm),
+            "a local-only moments histogram reached the global")
+    return {"est": est, "worst": worst, "m_worst": m_worst}
 
 
 def phase_slice(seed=1):
@@ -1105,51 +1216,17 @@ def phase_slice(seed=1):
     local.start()
     try:
         addr = local.statsd_addrs[0][1]
-        lines, hist = [], {}
-        # <= DENSE_DEPTH_CAP samples per key: deeper keys pre-reduce
-        # into weighted centroids, and the local flush would be B1's
-        for k in range(10):
-            vals = rng.gamma(2.0, 20.0, 500)
-            kind = "h" if k % 2 == 0 else "ms"
-            hist[f"slice.lat{k}"] = vals
-            lines += [b"slice.lat%d:%.4f|%s|#svc:web" % (k, v, kind.encode())
-                      for v in vals]
-        loc = rng.gamma(2.0, 20.0, 300)
-        lines += [b"slice.loc:%.4f|h|#veneurlocalonly" % v for v in loc]
-        hist = {k: np.asarray([float("%.4f" % x) for x in v])
-                for k, v in hist.items()}
-        loc = np.asarray([float("%.4f" % x) for x in loc])
-        n_counter = 3000
-        lines += [b"slice.hits:1|c|@0.5"] * n_counter        # weight 2
-        lines += [b"slice.bytes:3|c|#veneurglobalonly"] * 500
-        n_members = 2000
-        lines += [b"slice.users:u%d|s" % i for i in range(n_members)]
-        lines += [b"slice.users:u%d|s" % i for i in range(0, n_members, 7)]
-        # moments keys: 2,400 and 2,000 samples (folded into the row's
-        # ivec on the host past DENSE_DEPTH_CAP), four keys of 300
-        # samples staged for B5, one of them sampled at rate 0.5
-        mom = {"mom.lat": rng.gamma(2.0, 20.0, 2400),
-               "mom.loc": rng.gamma(2.0, 20.0, 2000)}
-        lines += [b"mom.lat:%.4f|h" % v for v in mom["mom.lat"]]
-        lines += [b"mom.loc:%.4f|h|#veneurlocalonly" % v
-                  for v in mom["mom.loc"]]
-        for i in range(4):
-            vals = rng.gamma(2.0, 20.0, 300)
-            mom[f"mom.s{i}"] = vals
-            rate = b"|@0.5" if i == 0 else b""
-            lines += [b"mom.s%d:%.4f|ms%s" % (i, v, rate) for v in vals]
-        mom = {k: np.asarray([float("%.4f" % x) for x in v])
-               for k, v in mom.items()}
-        lines = [lines[i] for i in rng.permutation(len(lines))]
-        # one reader keeps datagram order: the last gauge write wins
-        lines += [b"slice.temp:%d|g" % i for i in range(10)]
-        _udp_send(addr, lines, local, len(lines))
+        sl = _slice_lines(rng)
+        _udp_send(addr, sl["lines"], local, len(sl["lines"]))
 
         se.reset_launches()
         me.reset_launches()
         local.flush()
         b3_local = se.launches["uniform_eval"]
         b5_local = me.launches["moments_sums"]
+        # the forward runs on the local's forward pool: the global's
+        # flush reads the imports once it has landed
+        require(local.wait_forwards(60.0), "the in-process forward hung")
         glob.flush()
         b1_global = se.launches["weighted_eval"]
         b5_global = me.launches["moments_sums_depth"]
@@ -1164,59 +1241,16 @@ def phase_slice(seed=1):
         shapes = sorted(caps["local"].shapes | caps["global"].shapes)
         lm = {m.name: m.value for m in lsink.queue.get(timeout=5)}
         gm = {m.name: m.value for m in gsink.queue.get(timeout=5)}
-        require(lm["slice.hits"] == 2 * n_counter, lm["slice.hits"])
-        require(gm["slice.bytes"] == 1500, gm["slice.bytes"])
-        require(lm["slice.temp"] == 9.0, lm["slice.temp"])
-        est = gm["slice.users"]
-        # 4 standard errors of HLL at precision 14 (1.04 / sqrt(2^14))
-        require(abs(est - n_members) <= 4 * 1.04 / 128 * n_members, est)
-        worst = 0.0
-        for name, vals in hist.items():
-            require(lm[f"{name}.count"] == len(vals), name)
-            require(abs(lm[f"{name}.min"] - vals.min()) < 1e-3, name)
-            require(abs(lm[f"{name}.max"] - vals.max()) < 1e-3, name)
-            for p in PERCENTILES:
-                want = np.percentile(vals, 100 * p, method="hazen")
-                got = gm[f"{name}.{int(p * 100)}percentile"]
-                rel = abs(got - want) / want
-                worst = max(worst, rel)
-                require(rel <= 0.01, (name, p, got, want))
-        # no compression on the local: B3's quantiles are numpy's Hazen
-        # percentiles of the f32 samples, up to f32 rounding
-        require(not any(k.startswith("slice.loc") for k in gm),
-                "a local-only histogram reached the global")
-        for p in PERCENTILES:
-            want = np.percentile(loc, 100 * p, method="hazen")
-            got = lm[f"slice.loc.{int(p * 100)}percentile"]
-            require(abs(got - want) <= 1e-5 * abs(want), (p, got, want))
-        # moments: count/min/max exact on the local; quantiles within
-        # the family's envelope of numpy's at >= 2,000 samples (the
-        # local-only key on the local, the forwarded one on the global)
-        for name, vals in mom.items():
-            weight = 2.0 if name == "mom.s0" else 1.0
-            require(lm[f"{name}.count"] == weight * len(vals), name)
-            require(lm[f"{name}.min"] == vals.min(), name)
-            require(lm[f"{name}.max"] == vals.max(), name)
-        m_worst = 0.0
-        for name, out in (("mom.lat", gm), ("mom.loc", lm)):
-            vals = mom[name]
-            span = vals.max() - vals.min()
-            for p in PERCENTILES:
-                err = abs(out[f"{name}.{int(p * 100)}percentile"]
-                          - np.quantile(vals, p)) / span
-                m_worst = max(m_worst, err)
-                require(err < MOMENTS_ENVELOPE, (name, p, err))
-        require(not any(k.startswith("mom.loc") for k in gm),
-                "a local-only moments histogram reached the global")
-        log(f"slice over UDP: counters exact, set estimate {est:.0f} of "
-            f"{n_members}, histogram count/min/max exact on the local, "
-            f"local-only percentiles (B3) equal to numpy hazen within "
-            f"1e-5, global percentiles within {worst:.4%} of it; moments "
-            f"count/min/max exact, quantiles within {m_worst:.4%} of the "
-            f"span of numpy's; launches B3 local={b3_local} B5 "
-            f"local={b5_local} B1 global={b1_global} B5 "
-            f"global={b5_global}; B5 == plain on the slice's own inputs "
-            f"{shapes}")
+        c = _check_slice(lm, gm, sl)
+        log(f"slice over UDP: counters exact, set estimate {c['est']:.0f} "
+            f"of {sl['n_members']}, histogram count/min/max exact on the "
+            f"local, local-only percentiles (B3) equal to numpy hazen "
+            f"within 1e-5, global percentiles within {c['worst']:.4%} of "
+            f"it; moments count/min/max exact, quantiles within "
+            f"{c['m_worst']:.4%} of the span of numpy's; launches B3 "
+            f"local={b3_local} B5 local={b5_local} B1 global={b1_global} "
+            f"B5 global={b5_global}; B5 == plain on the slice's own "
+            f"inputs {shapes}")
     finally:
         local.shutdown()
         glob.shutdown()
@@ -1281,6 +1315,8 @@ def phase_slice_bf16(seed=4):
             local.flush()
             lm = {m.name: m.value for m in lsink.queue.get(timeout=5)}
             mid = dict(se.launches)
+            require(local.wait_forwards(60.0),
+                    "the in-process forward hung")
             glob.flush()
             gm = {m.name: m.value for m in gsink.queue.get(timeout=5)}
             launched[interval] = {
@@ -1474,6 +1510,8 @@ def phase_slice_compactor(seed=5):
             b6_before = ce.launches["compact_batch"]
             local.flush()
             b6_local = ce.launches["compact_batch"] - b6_before
+            require(local.wait_forwards(60.0),
+                    "the in-process forward hung")
             n_local = cap_b6.check_against_plain()
             glob.flush()
             b6_global = (ce.launches["compact_batch"] - b6_before
@@ -2208,6 +2246,7 @@ def compactor_cells(rng, n_keys=16_384, per=512, n_timed=3):
                                v.min(axis=1)), "local min")
         require(np.array_equal(column(got, "cl", ".max", every),
                                v.max(axis=1)), "local max")
+        require(srv.wait_forwards(60.0), "the in-process forward hung")
         fwd = {f.name: f.compactor for f in state["fwd"]}
         require(len(fwd) == n_keys - n_local, len(fwd))
         require(all(vec[cs.IDX_COUNT] == per for vec in fwd.values()),
@@ -3300,6 +3339,318 @@ def phase_slice_mesh(seed=8, mesh_devices=1):
         f"{sorted(shapes)}")
 
 
+def _grpc_pair(prefix, global_sinks, local_sinks, listen=(), **common):
+    """A port global serving gRPC import on 127.0.0.1:0 and a port local
+    (statsd on `listen`) forwarding to it over gRPC through its own
+    ForwardClient, both configured with `common` and no ticker flush in
+    the phase's way."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.core.server import Server
+
+    common = dict(percentiles=PERCENTILES, interval=3600.0, **common)
+    glob = Server(Config(grpc_address="127.0.0.1:0",
+                         hostname=f"{prefix}-global", **common),
+                  extra_metric_sinks=global_sinks, device=DEVICE)
+    glob.start()
+    try:
+        local = Server(Config(
+            statsd_listen_addresses=list(listen),
+            forward_address=f"127.0.0.1:{glob.grpc_import.port}",
+            hostname=f"{prefix}-local", forward_timeout=120.0, **common),
+            extra_metric_sinks=local_sinks, device=DEVICE)
+    except BaseException:
+        glob.shutdown()
+        raise
+    return glob, local
+
+
+def phase_slice_grpc(seed=11, deep_keys=2000, deep_samples=200):
+    """phase_slice over gRPC: a port local (UDP in, forward_address to
+    the global, no forwarder callable) and a port global (grpc_address)
+    on the card, with the moments rule `mom.*` and the compactor rule
+    `c.*`.  Real DogStatsD datagrams carry phase_slice's interval, three
+    compactor keys (one global-only) and a group of `deep_keys` keys of
+    `deep_samples` samples each (multi-value lines), whose forwarded
+    digests hold more than 100 centroids each: one V1 chunk of 2,000 of
+    them, bounded by count alone, would pass gRPC's 4 MiB receive limit
+    (ROADMAP C14).  Checks: phase_slice's checks on both tiers; ladders
+    within rank_error_bound; the deep keys' counts exact; the client
+    dropped nothing and sent more than one V1 chunk; and the global's
+    InterMetrics equal, value for value, those of a second global that
+    imports the same forwarded list in process.  Returns the sizes and
+    the worst errors."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.forward import client as fc
+    from veneur_tpu_torch.forward import convert
+    from veneur_tpu_torch.sinks.simple import ChannelMetricSink
+    from veneur_tpu_torch.sketches import compactor as cs
+
+    rng = np.random.default_rng(seed)
+    rules = MOMENT_RULES + COMPACTOR_RULES
+    gsink, lsink, isink = (ChannelMetricSink(), ChannelMetricSink(),
+                           ChannelMetricSink())
+    glob, local = _grpc_pair("grpc", [gsink], [lsink],
+                             listen=["udp://127.0.0.1:0"],
+                             sketch_family_rules=rules)
+    inproc = Server(Config(percentiles=PERCENTILES, hostname="grpc-global",
+                           sketch_family_rules=rules, interval=3600.0),
+                    extra_metric_sinks=[isink], device=DEVICE)
+    local.start()
+    try:
+        # phase_slice's own lines (its seed), then this phase's
+        sl = _slice_lines(np.random.default_rng(1))
+        lines = list(sl["lines"])
+        counts = [1] * len(lines)
+        ladders = {"c.lat0": 3000, "c.lat1": 700, "c.glob": 900}
+        ladders = {k: np.asarray([float("%.4f" % x)
+                                  for x in rng.gamma(2.0, 20.0, n)])
+                   for k, n in ladders.items()}
+        for k, v in ladders.items():
+            tail = b"|#veneurglobalonly" if k == "c.glob" else b""
+            lines += [b"%s:%.4f|h%s" % (k.encode(), x, tail) for x in v]
+        counts += [1] * sum(map(len, ladders.values()))
+        # the deep group: 100 values a line, so a line fits a datagram
+        deep = rng.gamma(2.0, 20.0, (deep_keys, deep_samples))
+        for i in range(deep_keys):
+            for j in range(0, deep_samples, 100):
+                vals = deep[i, j:j + 100]
+                lines.append(b"deep.k%d:%s|h" % (
+                    i, b":".join(b"%.4f" % x for x in vals)))
+                counts.append(len(vals))
+        _udp_send(local.statsd_addrs[0][1], lines, local, sum(counts),
+                  counts)
+
+        # launch deltas: main() counts the whole path from zero
+        before = _read_launches()
+        res = local.flush()
+        require(local.wait_forwards(120.0), "the gRPC forward hung")
+        mid = _read_launches()
+        b3_local = mid["uniform_eval"] - before["uniform_eval"]
+        b6_local = mid["compact_batch"] - before["compact_batch"]
+        inproc.aggregator.import_metrics(res.forward)
+        glob.flush()
+        inproc.flush()
+        after = _read_launches()
+        b1_global = after["weighted_eval"] - mid["weighted_eval"]
+        b5_global = (after["moments_sums_depth"]
+                     - mid["moments_sums_depth"])
+        require(min(b3_local, b6_local, b1_global, b5_global) >= 1,
+                f"gRPC slice missed a kernel: B3 {b3_local} and B6 "
+                f"{b6_local} on the local, B1 {b1_global} and B5 (depth "
+                f"variant) {b5_global} on the globals")
+        st = local.forwarder.stats()
+        deep_fwd = [f for f in res.forward if f.name.startswith("deep.")]
+        count_chunk = sum(convert.to_pb(f).ByteSize()
+                          for f in res.forward[:fc.BATCH_MAX])
+        require(st["dropped"] == 0 and st["sent"] == len(res.forward),
+                f"client stats {st}, {len(res.forward)} forwarded")
+        require(st["chunks"] > 1, f"one V1 chunk only: {st}")
+        require(len(deep_fwd) == deep_keys
+                and min(len(f.digest_means) for f in deep_fwd) > 100,
+                "the deep keys forwarded 100 centroids or fewer")
+        require(count_chunk > 4 * 1024 * 1024,
+                f"a count-bounded chunk is {count_chunk} bytes")
+        require(glob.grpc_import.import_errors == 0
+                and glob.proto_received["grpc"] == len(res.forward),
+                f"global imported {glob.proto_received['grpc']} of "
+                f"{len(res.forward)}")
+        lm = {m.name: m.value for m in lsink.queue.get(timeout=5)}
+        gmetrics = gsink.queue.get(timeout=5)
+        imetrics = isink.queue.get(timeout=5)
+        gm = {m.name: m.value for m in gmetrics}
+        c = _check_slice(lm, gm, sl)
+        # the hop over gRPC is the in-process hop, value for value
+        got = sorted((m.name, tuple(m.tags), m.type, m.value)
+                     for m in gmetrics)
+        want = sorted((m.name, tuple(m.tags), m.type, m.value)
+                      for m in imetrics)
+        require(got == want, "the gRPC global differs from the "
+                "in-process one: " + str(sorted(set(got) ^ set(want))[:6]))
+        for i in range(deep_keys):
+            require(lm[f"deep.k{i}.count"] == deep_samples, i)
+        d_worst = 0.0
+        for i in range(0, deep_keys, 97):
+            vals = np.asarray([float("%.4f" % x) for x in deep[i]])
+            for p in PERCENTILES:
+                want = np.percentile(vals, 100 * p, method="hazen")
+                d_worst = max(d_worst, abs(
+                    gm[f"deep.k{i}.{int(p * 100)}percentile"] - want) / want)
+        cap, levels = cs.DEFAULT_CAP, cs.DEFAULT_LEVELS
+        l_worst = 0.0
+        for k, v in ladders.items():
+            # count on the tier that emits the key's aggregates,
+            # percentiles on the global
+            require((gm if k == "c.glob" else lm)[f"{k}.count"] == len(v),
+                    k)
+            for p in PERCENTILES:
+                l_worst = max(l_worst, _require_rank(
+                    gm[f"{k}.{int(p * 100)}percentile"], np.sort(v), p,
+                    cap, levels, k))
+        result = {"forwarded": len(res.forward), "chunks": st["chunks"],
+                  "bytes_sent": st["bytes_sent"],
+                  "count_bounded_chunk_bytes": count_chunk,
+                  "deep_centroids_min": min(len(f.digest_means)
+                                            for f in deep_fwd),
+                  "percentile_worst_rel": c["worst"],
+                  "deep_percentile_worst_rel": d_worst,
+                  "moments_worst_span": c["m_worst"],
+                  "ladder_worst_rank": l_worst}
+        log(f"gRPC slice over UDP: phase_slice's checks hold across the "
+            f"gRPC hop (global percentiles within {c['worst']:.4%} of "
+            f"numpy hazen, moments within {c['m_worst']:.4%} of the span, "
+            f"set estimate {c['est']:.0f} of {sl['n_members']}); ladders "
+            f"within the rank bound (worst {l_worst:.4%} of n); "
+            f"{deep_keys} deep keys forwarded >= "
+            f"{result['deep_centroids_min']} centroids each (their "
+            f"percentiles within {d_worst:.4%}); {len(res.forward)} "
+            f"metrics in {st['chunks']} V1 chunks, {st['bytes_sent']} "
+            f"bytes (a count-bounded chunk: {count_chunk} bytes), dropped "
+            f"0; the global's {len(got)} InterMetrics equal the "
+            f"in-process hop's; launches B3 local={b3_local} B6 "
+            f"local={b6_local} B1 global={b1_global} B5 "
+            f"global={b5_global}")
+        return result
+    finally:
+        local.shutdown()
+        glob.shutdown()
+        inproc.shutdown()
+
+
+def grpc_cell(seed=12, n_keys=100_000, per=64, budget_s=60.0):
+    """local 100k x 64 -> gRPC V1 -> global: the north star's shape
+    with its 100,000 imported 64-centroid digests arriving over real
+    gRPC from a port local.  The local's keys take 64 raw samples each
+    at a sampled weight of their own (1/rate in 1..49), staged in bulk
+    as the local cells stage them (UDP is measured by the slices); its
+    flush (B1) exports 64-centroid digests, its client forwards them in
+    V1 chunks to the port global's import server, and the global
+    flushes them (B1).  Times the local flush, the forward (from the
+    local flush's return until the global's import count reaches
+    n_keys) and the global flush, over one warm-up and as many timed
+    intervals as the cell's `budget_s` leaves room for (at least one);
+    records the bytes and chunks sent.  Checks every interval's counts
+    and B1 launches exactly, and the warm-up's global percentiles
+    bitwise against a MetricAggregator that imports the same forwarded
+    list in process."""
+    import torch
+    from veneur_tpu_torch.core.aggregator import MetricAggregator
+    from veneur_tpu_torch.samplers import samplers as sm
+    from veneur_tpu_torch.samplers.metric_key import MetricKey, MetricScope
+    from veneur_tpu_torch.sinks.simple import BlackholeMetricSink
+
+    rng = np.random.default_rng(seed)
+    t_cell = time.perf_counter()
+    glob, local = _grpc_pair("cell", [BlackholeMetricSink()],
+                             [BlackholeMetricSink()],
+                             arena_initial_capacity=n_keys)
+    try:
+        digests = local.aggregator.digests
+        rows = np.asarray([digests.row_for(
+            MetricKey(f"grpc.k{i}", sm.TYPE_HISTOGRAM, ""),
+            MetricScope.MIXED, []) for i in range(n_keys)], np.int64)
+        all_rows = np.repeat(rows, per)
+        client = local.forwarder
+        n_q = len(PERCENTILES)
+
+        def interval():
+            vals = rng.gamma(2.0, 10.0, n_keys * per)
+            # sampled traffic: each key at its own rate, weights 1/rate
+            # in 1..49 as the global 100k x 64 cell's imported weights;
+            # equal weights in a row keep each sample its own centroid,
+            # so a key forwards 64 weighted centroids
+            wts = np.repeat(rng.integers(1, 50, n_keys),
+                            per).astype(np.float64)
+            with local.aggregator.lock:
+                digests.sample_batch(all_rows, vals, wts)
+                digests.touched[rows] = True
+            local.aggregator.sync_staged(min_samples=1)
+            st0, imp0 = client.stats(), glob.grpc_import.imported_count
+            import_s0 = glob.grpc_import.import_s
+            b1 = [_read_launches()["weighted_eval"]]
+            t0 = time.perf_counter()
+            res = local.flush()
+            t1 = time.perf_counter()
+            b1.append(_read_launches()["weighted_eval"])
+            deadline = t1 + 300.0
+            while glob.grpc_import.imported_count < imp0 + n_keys:
+                require(time.perf_counter() < deadline,
+                        f"the global imported "
+                        f"{glob.grpc_import.imported_count - imp0} of "
+                        f"{n_keys} forwarded digests")
+                time.sleep(0.001)
+            t2 = time.perf_counter()
+            require(local.wait_forwards(60.0), "the forward never returned")
+            gres = glob.flush()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            b1.append(_read_launches()["weighted_eval"])
+            require(np.diff(b1).tolist() == [1, 1],
+                    f"B1 launches local, global: {np.diff(b1).tolist()}")
+            st = client.stats()
+            sent = {k: st[k] - st0[k] for k in st}
+            import_ms = (glob.grpc_import.import_s - import_s0) * 1e3
+            require(len(res.forward) == n_keys and sent["sent"] == n_keys
+                    and sent["dropped"] == 0 and sent["retries"] == 0,
+                    f"forward of {len(res.forward)}: {sent}")
+            require(gres.imported == n_keys
+                    and len(gres.metrics) == n_keys * n_q,
+                    f"global imported {gres.imported}, emitted "
+                    f"{len(gres.metrics)}")
+            require(all(len(f.digest_means) == per for f in res.forward),
+                    "a forwarded digest is not 64 centroids")
+            vals_out = np.asarray([m.value for m in gres.metrics])
+            require(np.isfinite(vals_out).all(), "non-finite percentile")
+            return res, gres, {
+                "local_flush_ms": (t1 - t0) * 1e3,
+                "forward_ms": (t2 - t1) * 1e3,
+                "global_flush_ms": (t3 - t2) * 1e3,
+                "encode_ms": sent["encode_s"] * 1e3,
+                "import_ms": import_ms,
+                "bytes_sent": sent["bytes_sent"], "chunks": sent["chunks"],
+                "local_segments": dict(local.aggregator.last_flush_segments),
+                "global_segments": dict(glob.aggregator.last_flush_segments)}
+
+        res, gres, warm = interval()
+        ref = MetricAggregator(percentiles=PERCENTILES, is_local=False,
+                               initial_capacity=n_keys, device=DEVICE)
+        ok, failed = ref.import_metrics(res.forward)
+        require((ok, failed) == (n_keys, 0), (ok, failed))
+        rres = ref.flush(is_local=False)
+        got = sorted((m.name, m.value) for m in gres.metrics)
+        want = sorted((m.name, m.value) for m in rres.metrics)
+        require(got == want, "the global over gRPC differs from the "
+                "in-process import: " + str([
+                    (g, w) for g, w in zip(got, want) if g != w][:4]))
+        timed, last = [], 0.0
+        while not timed or time.perf_counter() - t_cell + last < budget_s:
+            t0 = time.perf_counter()
+            timed.append(interval()[2])
+            last = time.perf_counter() - t0
+        med = {k: float(np.median([t[k] for t in timed]))
+               for k in timed[0] if not k.endswith("_segments")}
+        out = {"label": f"local {n_keys} x {per} -> gRPC V1 -> global",
+               "n_keys": n_keys, "per": per, "warm_up": warm,
+               "intervals": timed,
+               **{f"{k}_p50": v for k, v in med.items()}}
+        card_log(
+            f"{out['label']}: over {len(timed)} timed interval(s), p50 "
+            f"local flush {med['local_flush_ms']:.1f} ms, forward "
+            f"{med['forward_ms']:.1f} ms ({med['bytes_sent'] / 1e6:.1f} MB "
+            f"in {med['chunks']:.0f} V1 chunks, "
+            f"{med['bytes_sent'] / med['forward_ms'] / 1e3:.1f} MB/s; "
+            f"encode {med['encode_ms']:.1f} ms, decode+import "
+            f"{med['import_ms']:.1f} ms summed over the chunks' RPCs), "
+            f"global flush {med['global_flush_ms']:.1f} ms; warm-up "
+            f"{warm['local_flush_ms']:.1f} / {warm['forward_ms']:.1f} / "
+            f"{warm['global_flush_ms']:.1f} ms; counts exact, the global's "
+            f"{len(got)} percentiles bitwise the in-process import's")
+        return out
+    finally:
+        local.shutdown()
+        glob.shutdown()
+
+
 def mesh_cells(seed=9, n_keys=100_000, per=64, n_sets=10_000,
                n_counters=100_000, n_timed=3, grids=None):
     """The meshed global tier at the north star's scale: 100k histogram
@@ -3918,7 +4269,9 @@ def main() -> int:
     phase_slice_compactor()
     phase_slice_cubes()
     phase_slice_mesh()
+    grpc_slice = phase_slice_grpc()
     full = phase_full_size()
+    grpc = grpc_cell()
     cube = cube_cell()
     meshed, b8_b9 = mesh_cells()
     meshed += moments_mesh_cell()
@@ -3962,6 +4315,7 @@ def main() -> int:
                    "profiling_path_launches": harness_launches,
                    "kernel_times": timed,
                    "flushes": full, "cube_cell": cube,
+                   "grpc_slice": grpc_slice, "grpc_cell": grpc,
                    "meshed_flushes": meshed, "meshed_b8_b9": b8_b9,
                    "harness": harness}, f,
                   indent=1)

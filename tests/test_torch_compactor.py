@@ -678,6 +678,7 @@ class _Pair:
         self.jsrv.flush()
         self.jsrv.egress.settle(timeout_s=10.0)
         self.tsrv.flush()
+        assert self.tsrv.wait_forwards(10.0), "port forward never landed"
         return ([m for b in _drain(self.jsink) for m in b],
                 [m for b in _drain(self.tsink) for m in b])
 
@@ -733,6 +734,7 @@ def test_local_to_global_hop_conserves_counts():
     for f in jl.flush(is_local=True).forward:
         jg.import_metric(f)
     local.flush()
+    assert local.wait_forwards(10.0)
     cp = glob.aggregator.compactors
     row = cp.kdict[(MetricKey("c.h2", "histogram", ""),
                     MetricScope.GLOBAL_ONLY)]
@@ -904,6 +906,7 @@ def test_compactor_slice_imports_neither_jax_nor_the_jax_package():
         local.process_packet_buffer(b"\\n".join(
             b"c.h:%d|h" % i for i in range(300)))
         local.flush()
+        assert local.wait_forwards(10.0)
         got = {m.name: m.value for m in glob.flush().metrics}
         assert got["c.h.50percentile"] > 0, got
         bad = sorted(m for m in sys.modules

@@ -607,6 +607,7 @@ def test_local_to_global_hop_through_the_in_process_forwarder():
     for f in jl.flush(is_local=True).forward:
         jg.import_metric(f)
     local.flush()
+    assert local.wait_forwards(10.0)
     want = jg.flush(is_local=False, now=5)
     got = glob.aggregator.flush(is_local=False, now=5)
     _assert_same(got, want, vals)

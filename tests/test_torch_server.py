@@ -209,6 +209,7 @@ class _Pair:
             assert time.time() < deadline, "JAX forward never landed"
             time.sleep(0.01)
         self.tsrv.flush()
+        assert self.tsrv.wait_forwards(10.0), "port forward never landed"
         jm = [m for batch in _drain(self.jsink) for m in batch]
         tm = [m for batch in _drain(self.tsink) for m in batch]
         return jm, tm
@@ -556,7 +557,7 @@ def _one_histogram():
     {"cardinality_key_budget": 100},
     {"checkpoint_dir": "ckpt"}, {"spool_dir": "spool"},
     {"egress_spool_dir": "egress"}, {"ingest_backend": "io_uring"},
-    {"grpc_address": "127.0.0.1:0"}])
+    {"grpc_listen_addresses": ["127.0.0.1:0"]}])
 def test_config_refuses_options_outside_the_port(option):
     with pytest.raises(NotImplementedError):
         tconfig.Config(**option)
@@ -569,9 +570,14 @@ def test_config_has_no_native_ingest_switch():
 
 
 def test_local_tier_needs_an_in_process_forwarder():
-    with pytest.raises(NotImplementedError, match="forwarder"):
-        Server(tconfig.Config(forward_address="127.0.0.1:8128"),
-               device="cpu")
+    """A local tier forwards over gRPC without a callable now; a
+    forward that asks for the spool or TLS is still refused."""
+    with pytest.raises(NotImplementedError, match="spool"):
+        Server(tconfig.Config(forward_address="127.0.0.1:8128",
+                              spool_dir="spool"), device="cpu")
+    with pytest.raises(NotImplementedError, match="TLS"):
+        Server(tconfig.Config(forward_address="127.0.0.1:8128",
+                              tls_certificate="cert.pem"), device="cpu")
 
 
 def test_entry_points_refuse_cpu_fallback_without_cuda():
@@ -594,9 +600,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     t-digest and a moments histogram), then boot a server with cubes and
     the query plane and serve one /query over HTTP, then a meshed server
     on two logical CPU devices, import every kernel module and run the
-    three profiling entry points at a tiny shape: no jax* and no
-    veneur_tpu module (nor the JAX package's scripts) may load (checked
-    in a fresh process, since this one already imported both)."""
+    three profiling entry points at a tiny shape, then forward from a
+    port local to a port global over gRPC: no jax* and no veneur_tpu
+    module (its generated protos included, nor the JAX package's
+    scripts) may load (checked in a fresh process, since this one
+    already imported both)."""
     code = textwrap.dedent("""
         import sys
         import veneur_tpu_torch
@@ -644,6 +652,27 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for script in (profile_flush_kernel, profile_kernel_inloop,
                        sort_variants):
             script.main(["16", "8", "1", "1"], device="cpu")
+        glob = Server(Config(grpc_address="127.0.0.1:0", percentiles=[0.5],
+                             interval=3600.0),
+                      extra_metric_sinks=[sink], device="cpu")
+        glob.start()
+        local = Server(Config(forward_address="127.0.0.1:%d"
+                              % glob.grpc_import.port, interval=3600.0,
+                              forward_timeout=5.0), device="cpu")
+        try:
+            local.process_packet_buffer(
+                b"f.h:1|h\\nf.h:3|h\\nf.c:2|c|#veneurglobalonly")
+            local.flush()
+            assert local.wait_forwards(10.0)
+            stats = local.forwarder.stats()
+            assert stats["sent"] == 2, stats
+            glob.flush()
+            got = {m.name: m.value for m in sink.queue.get(timeout=5)}
+            assert got["f.c"] == 2.0, got
+            assert got["f.h.50percentile"] == 2.0, got
+        finally:
+            local.shutdown()
+            glob.shutdown()
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "veneur_tpu" or m.startswith("veneur_tpu.")

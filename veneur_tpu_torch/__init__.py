@@ -1,7 +1,8 @@
 """veneur_tpu_torch: the metrics-aggregation server on PyTorch and CUDA.
 
 The package mirrors `veneur_tpu`'s module layout (samplers, sketches,
-ops, parallel, core) so each module has an obvious counterpart there.
+ops, parallel, core, forward, sources, protocol) so each module has an
+obvious counterpart there.
 Its entry points (`core.server.Server`, `core.aggregator.MetricAggregator`,
 the arenas, `parallel.serving.make_serving_flush`) run on a CUDA device
 unless the caller names another one; the flush's evaluation kernels are

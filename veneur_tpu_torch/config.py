@@ -22,7 +22,21 @@ class Config:
     """Server configuration (config.go:12-112)."""
     # listeners
     statsd_listen_addresses: list[str] = field(default_factory=list)
+    grpc_address: str = ""          # gRPC import (global tier)
     forward_address: str = ""       # set => this is a LOCAL instance
+
+    # forwarding (forward/client.py): each forward's deadline (0: the
+    # interval, at least 10 s), the V2 streams a big payload fans out
+    # over, retries of what is provably undelivered after a base
+    # backoff that doubles, and whether DEADLINE_EXCEEDED counts as
+    # undelivered (only against a global with a dedup ledger)
+    forward_timeout: float = 0.0
+    forward_streams: int = 8
+    forward_max_retries: int = 2
+    forward_retry_backoff: float = 0.05
+    forward_deadline_retry_safe: bool = False
+    # chunk identities a global's dedup ledger keeps per sender
+    spool_dedup_window: int = 4096
 
     # aggregation
     interval: float = 10.0
@@ -102,23 +116,16 @@ class Config:
 
     # options outside this package: accepted at their defaults, rejected
     # at any other value (UNSUPPORTED)
-    grpc_address: str = ""
     grpc_listen_addresses: list[str] = field(default_factory=list)
     ssf_listen_addresses: list[str] = field(default_factory=list)
     http_address: str = ""
     stats_address: str = ""
-    forward_timeout: float = 0.0
-    forward_streams: int = 8
-    forward_max_retries: int = 2
-    forward_retry_backoff: float = 0.05
-    forward_deadline_retry_safe: bool = False
     spool_dir: str = ""
     spool_max_bytes: int = 64 * 1024 * 1024
     spool_max_age: float = 600.0
     spool_fsync: str = "rotate"
     spool_replay_interval: float = 0.5
     spool_segment_max_bytes: int = 4 * 1024 * 1024
-    spool_dedup_window: int = 4096
     egress_queue_depth: int = 128
     egress_max_retries: int = 2
     egress_retry_backoff: float = 0.05
@@ -243,6 +250,12 @@ class Config:
                                 | {f for _, _, f in fams})
 
         # the JAX package's clamps and boot-time cube validation
+        if self.forward_timeout < 0:
+            self.forward_timeout = 0.0
+        if self.forward_max_retries < 0:
+            self.forward_max_retries = 0
+        if self.forward_retry_backoff < 0:
+            self.forward_retry_backoff = 0.0
         if self.query_window_slots < 0:
             self.query_window_slots = 0
         if self.query_slot_seconds < 0:
@@ -309,18 +322,13 @@ _PROFILING = "the profiling endpoints"
 _TRACING = "flush tracing"
 _SPANS = "SSF span ingest"
 UNSUPPORTED = {
-    "grpc_address": "gRPC import; wire a forwarder callable instead",
-    "grpc_listen_addresses": "gRPC ingest",
+    "grpc_listen_addresses": "gRPC ingest listeners",
     "ssf_listen_addresses": _SPANS,
     "http_address": "the CLI's HTTP listener; start http_api.HttpApi",
     "stats_address": "self-telemetry",
-    **dict.fromkeys(("forward_timeout", "forward_streams",
-                     "forward_max_retries", "forward_retry_backoff",
-                     "forward_deadline_retry_safe"), "the gRPC forwarder"),
     **dict.fromkeys(("spool_dir", "spool_max_bytes", "spool_max_age",
                      "spool_fsync", "spool_replay_interval",
-                     "spool_segment_max_bytes", "spool_dedup_window"),
-                    "the forward spool"),
+                     "spool_segment_max_bytes"), "the forward spool"),
     **dict.fromkeys(("egress_queue_depth", "egress_max_retries",
                      "egress_retry_backoff", "egress_retry_seed",
                      "egress_breaker_threshold", "egress_breaker_reset",
@@ -372,7 +380,8 @@ UNSUPPORTED = {
                     "the HTTP debug API"),
     "sentry_dsn": "crash reporting",
     **dict.fromkeys(("tls_key", "tls_certificate",
-                     "tls_authority_certificate"), "TLS listeners"),
+                     "tls_authority_certificate"),
+                    "TLS listeners and forwarding"),
     "diagnostics_metrics_enabled": "self-telemetry",
     "sources": "openmetrics sources",
     "enable_metric_sink_routing": "sink routing",

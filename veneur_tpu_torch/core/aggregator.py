@@ -61,9 +61,11 @@ from veneur_tpu_torch import resolve_device
 from veneur_tpu_torch.config import check_mesh_families, parse_family_rules
 from veneur_tpu_torch.core import arena as arena_mod
 from veneur_tpu_torch.cubes import CubeMaintainer, parse_dimensions
+from veneur_tpu_torch.forward import convert
 from veneur_tpu_torch.ops import compactor_eval as ce
 from veneur_tpu_torch.ops import moments_eval as me
 from veneur_tpu_torch.parallel import serving
+from veneur_tpu_torch.protocol import forward_pb2
 from veneur_tpu_torch.query.rings import WindowRing
 from veneur_tpu_torch.samplers import samplers as sm
 from veneur_tpu_torch.samplers.metric_key import (MetricKey, MetricScope,
@@ -219,6 +221,10 @@ class MetricAggregator:
                 for fam in ("tdigest", "moments", "compactor")}
         self.processed = 0
         self.imported = 0
+        # (name, tags, kind) -> row of the batched V1 import's counters
+        # and gauges; cleared at every flush cut, before the idle GC can
+        # recycle a row
+        self._import_row_cache: dict = {}
         self.count_unique_timeseries = count_unique_timeseries
         self.unique_ts = (hll_mod.HLLSketch() if count_unique_timeseries
                           else None)
@@ -348,10 +354,9 @@ class MetricAggregator:
     def import_metrics(self, fms) -> tuple[int, int]:
         """Batched import of a forwarded list: one lock for the whole
         list, and its moments vectors merged in bulk
-        (`MomentsArena.merge_moments_batch`, in rounds of distinct rows,
-        so each row takes its vectors in arrival order: bit-identical to
-        one import_metric each).  A metric that import_metric refuses
-        fails alone.  Returns (imported, failed)."""
+        (`_merge_staged_moments`: bit-identical to one import_metric
+        each).  A metric that import_metric refuses fails alone.
+        Returns (imported, failed)."""
         ok = failed = 0
         staged: list = []
         with self.lock:
@@ -361,31 +366,51 @@ class MetricAggregator:
                     ok += 1
                 except (ValueError, NotImplementedError):
                     failed += 1
-            if staged:
-                rows = np.fromiter((r for r, _ in staged), np.int64,
-                                   len(staged))
-                vecs = np.stack([v for _, v in staged])
-                # the r-th vector of each row merges in round r
-                order = np.argsort(rows, kind="stable")
-                first = np.searchsorted(rows[order], rows[order])
-                rnd = np.empty(len(rows), np.int64)
-                rnd[order] = np.arange(len(rows)) - first
-                for r in range(int(rnd.max()) + 1):
-                    sel = rnd == r
-                    self.moments.merge_moments_batch(rows[sel], vecs[sel])
+            self._merge_staged_moments(staged)
         return ok, failed
+
+    def _merge_staged_moments(self, staged: list) -> None:
+        """Merge (row, vector) pairs into the moments arena
+        (`MomentsArena.merge_moments_batch`) in rounds of distinct rows,
+        so each row takes its vectors in arrival order.  Under
+        self.lock."""
+        if not staged:
+            return
+        rows = np.fromiter((r for r, _ in staged), np.int64, len(staged))
+        vecs = np.stack([v for _, v in staged])
+        # the r-th vector of each row merges in round r
+        order = np.argsort(rows, kind="stable")
+        first = np.searchsorted(rows[order], rows[order])
+        rnd = np.empty(len(rows), np.int64)
+        rnd[order] = np.arange(len(rows)) - first
+        for r in range(int(rnd.max()) + 1):
+            sel = rnd == r
+            self.moments.merge_moments_batch(rows[sel], vecs[sel])
 
     def _import_locked(self, fm: sm.ForwardMetric, staged) -> None:
         """One import under self.lock; moments vectors are checked and
         appended to `staged` as (row, vector) when it is a list, else
         merged now."""
+        scope = self._import_scope(fm)
+        self.imported += 1
+        self._merge_locked(fm, scope, staged)
+
+    @staticmethod
+    def _import_scope(fm: sm.ForwardMetric) -> MetricScope:
+        """The scope an import lands in (worker.go:402-459): counters and
+        gauges are global; a local-only metric is refused."""
         scope = MetricScope(fm.scope)
         if fm.kind in (sm.TYPE_COUNTER, sm.TYPE_GAUGE):
             scope = MetricScope.GLOBAL_ONLY
         if scope == MetricScope.LOCAL_ONLY:
             raise ValueError("gRPC import does not accept local metrics")
+        return scope
+
+    def _merge_locked(self, fm: sm.ForwardMetric, scope: MetricScope,
+                      staged) -> None:
+        """Route one forwarded metric into its arena (the payload names
+        its sketch family) and merge it."""
         key = MetricKey(fm.name, fm.kind, ",".join(sorted(fm.tags)))
-        self.imported += 1
         if fm.kind == sm.TYPE_COUNTER:
             row = self.counters.row_for(key, MetricScope.GLOBAL_ONLY,
                                         fm.tags)
@@ -423,6 +448,87 @@ class MetricAggregator:
                     fm.digest_max, fm.digest_rsum)
         else:
             raise ValueError(f"unknown metric kind {fm.kind!r}")
+
+    # value oneof -> the wire `type` values it may carry
+    # (metricpb/metric.proto).  The batched import dispatches on the
+    # oneof and rejects a metric whose `type` contradicts it (type=Timer
+    # carrying a CounterValue), as the JAX package's does
+    _ONEOF_LEGAL_TYPES = {
+        "counter": (0,),        # metric_pb2.Counter
+        "gauge": (1,),          # metric_pb2.Gauge
+        "set": (3,),            # metric_pb2.Set
+        "histogram": (2, 4),    # metric_pb2.Histogram / Timer
+    }
+
+    def import_pb_batch(self, pbs) -> tuple[int, int]:
+        """Batched V1 import (`veneur_tpu/core/aggregator.py:609`): one
+        lock for the whole MetricList, the protobuf fields read
+        directly, counter and gauge rows found through an identity
+        cache (cleared every flush) and merged vectorized; sets,
+        digests, moments vectors and ladders take import_metric's
+        routing.  Scope and nil semantics are import_metric's; a metric
+        whose `type` contradicts its value oneof is refused.  A refused
+        metric fails alone.  Returns (imported, failed)."""
+        ok = failed = 0
+        cache = self._import_row_cache
+        legal = self._ONEOF_LEGAL_TYPES
+        c_rows: list = []
+        c_vals: list = []
+        g_rows: list = []
+        g_vals: list = []
+        staged: list = []
+        with self.lock:
+            for pb in pbs:
+                try:
+                    which = pb.WhichOneof("value")
+                    if which is None:
+                        raise ValueError("nil value")
+                    if pb.type not in legal[which]:
+                        raise ValueError(
+                            f"type/value mismatch: type={pb.type} "
+                            f"carrying {which}")
+                    if which in ("counter", "gauge"):
+                        kind = (sm.TYPE_COUNTER if which == "counter"
+                                else sm.TYPE_GAUGE)
+                        ck = (pb.name, tuple(pb.tags), kind)
+                        row = cache.get(ck)
+                        if row is None:
+                            tags = list(pb.tags)
+                            arena = (self.counters if which == "counter"
+                                     else self.gauges)
+                            row = cache[ck] = arena.row_for(
+                                MetricKey(pb.name, kind,
+                                          ",".join(sorted(tags))),
+                                MetricScope.GLOBAL_ONLY, tags)
+                        if which == "counter":
+                            c_rows.append(row)
+                            c_vals.append(pb.counter.value)
+                        else:
+                            g_rows.append(row)
+                            g_vals.append(pb.gauge.value)
+                    else:
+                        fm = convert.from_pb(pb)
+                        self._merge_locked(fm, self._import_scope(fm),
+                                           staged)
+                    self.imported += 1
+                    ok += 1
+                except Exception:   # noqa: BLE001 - wire input: fails alone
+                    failed += 1
+            self._merge_staged_moments(staged)
+            if c_rows:
+                self.counters.merge_batch(np.asarray(c_rows, np.int64),
+                                          np.asarray(c_vals, np.float64))
+            if g_rows:
+                self.gauges.merge_batch(np.asarray(g_rows, np.int64),
+                                        np.asarray(g_vals, np.float64))
+        return ok, failed
+
+    def import_payload(self, payload: bytes) -> tuple[int, int]:
+        """V1 import from a MetricList's bytes, parsed in Python, then
+        import_pb_batch.  (The JAX package scans the wire natively here;
+        that engine is ROADMAP A9.)"""
+        return self.import_pb_batch(
+            forward_pb2.MetricList.FromString(payload).metrics)
 
     def sync_staged(self, min_samples: int = 0) -> bool:
         """Consolidate staged samples now if the backlog is worth it (the
@@ -844,6 +950,7 @@ class MetricAggregator:
         mm.sync()
         cp.sync()
         s.sync()
+        self._import_row_cache.clear()
         snap = {"counts": (self.processed, self.imported)}
         self.processed = 0
         self.imported = 0

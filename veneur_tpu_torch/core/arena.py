@@ -360,6 +360,20 @@ class GaugeArena(_ArenaBase):
 
     merge = sample  # Merge overwrites (samplers.go:200-202)
 
+    def merge_batch(self, rows: np.ndarray, vals: np.ndarray) -> None:
+        """Vectorized merges, last write wins; marks the rows touched.
+        NumPy leaves fancy assignment with repeated indices unspecified,
+        so each row keeps its last occurrence first."""
+        if len(rows) > 1:
+            # np.unique over the reversed rows keeps each row's first
+            # reversed occurrence, the last original one
+            uniq, rev_first = np.unique(rows[::-1], return_index=True)
+            if len(uniq) != len(rows):
+                rows = uniq
+                vals = vals[len(vals) - 1 - rev_first]
+        self.values[rows] = vals
+        self.touched[rows] = True
+
     def reset_rows(self, rows: np.ndarray) -> None:
         self.values[rows] = 0
 

@@ -1,14 +1,19 @@
-"""The server: DogStatsD listeners, flush ticker and sink fan-out.
+"""The server: DogStatsD listeners, flush ticker, sink fan-out, gRPC
+forwarding and import.
 
 Counterpart of `veneur_tpu.core.server` (the reference `Server`,
 `server.go:106-174,462-868`) for what this package serves: UDP (with
 SO_REUSEPORT reader threads, `networking.go:54-107`) and TCP statsd
 listeners on Python reader threads, events and service checks
-(`server.go:942-993`), the interval flush ticker, a synchronous fan-out
-to the metric sinks, and — on a local tier — hand-off of the interval's
-forwardable metrics to an in-process `forwarder` callable.  `query` is
-the live query plane's engine; `http_api.HttpApi(server, address)`
-serves it over HTTP, started by the caller.
+(`server.go:942-993`), the interval flush ticker and a synchronous
+fan-out to the metric sinks.  A global tier (`grpc_address`) serves the
+gRPC import source (`sources/proxy.py`); a local tier
+(`forward_address`) hands each interval's forwardable metrics to its
+forwarder, the gRPC `ForwardClient` unless the caller passes a
+callable, on a pool of at most FORWARD_MAX_IN_FLIGHT concurrent
+forwards (`wait_forwards` waits for them).  `query` is the live query
+plane's engine; `http_api.HttpApi(server, address)` serves it over
+HTTP, started by the caller.
 
 The aggregation core is the batched MetricAggregator; its t-digest,
 moments and compactor flushes run on `device` (CUDA unless the caller
@@ -19,18 +24,23 @@ devices of `device`'s type: CUDA cards, or logical handles of the CPU.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import logging
 import socket
 import threading
+import time
 from typing import Callable, Optional
 
 from veneur_tpu_torch import config as config_mod
 from veneur_tpu_torch import sinks as sink_mod
 from veneur_tpu_torch.core.aggregator import MetricAggregator
+from veneur_tpu_torch.forward.client import ForwardClient, RetryPolicy
 from veneur_tpu_torch.parallel import mesh as mesh_mod
 from veneur_tpu_torch.query.engine import QueryEngine
 from veneur_tpu_torch.samplers import parser as parser_mod
 from veneur_tpu_torch.samplers import samplers as sm
+from veneur_tpu_torch.sources.proxy import DedupLedger, GrpcImportServer
 from veneur_tpu_torch.util import tagging
 
 logger = logging.getLogger("veneur_tpu_torch.server")
@@ -46,16 +56,15 @@ def parse_listen_addr(addr: str) -> tuple[str, str, int]:
 
 class Server:
     STREAM_IDLE_TIMEOUT_S = 600.0
+    # concurrent forwards; a flush that finds every slot taken drops its
+    # interval's batch and counts it in forward_dropped
+    FORWARD_MAX_IN_FLIGHT = 4
 
     def __init__(self, cfg: config_mod.Config,
                  extra_metric_sinks: Optional[list] = None,
                  forwarder: Optional[
                      Callable[[list[sm.ForwardMetric]], None]] = None,
                  device=None):
-        if cfg.is_local and forwarder is None:
-            raise NotImplementedError(
-                "forward_address needs an in-process forwarder callable: "
-                "the gRPC forward client is not ported")
         self.config = cfg
         self.parser = parser_mod.Parser(tagging.ExtendTags(cfg.extend_tags))
         # the sharded serving flush over (shard, replica)
@@ -96,7 +105,34 @@ class Server:
         self.query = QueryEngine(
             self.aggregator, tier="local" if cfg.is_local else "global",
             hostname=cfg.hostname)
+        if cfg.is_local and forwarder is None:
+            # the persistent forward connection (server.go:810-828).
+            # At most FORWARD_MAX_IN_FLIGHT forwards run at once, so the
+            # deadline may floor at the reference's default interval
+            forwarder = ForwardClient(
+                cfg.forward_address,
+                timeout_s=cfg.forward_timeout or max(cfg.interval, 10.0),
+                max_streams=cfg.forward_streams,
+                retry=RetryPolicy(
+                    attempts=cfg.forward_max_retries + 1,
+                    backoff_base_s=cfg.forward_retry_backoff),
+                source=cfg.hostname,
+                deadline_retry_safe=cfg.forward_deadline_retry_safe)
         self.forwarder = forwarder
+        self._forward_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=self.FORWARD_MAX_IN_FLIGHT + 2,
+            thread_name_prefix="forward")
+        self._forward_slots = threading.BoundedSemaphore(
+            self.FORWARD_MAX_IN_FLIGHT)
+        self._forward_lock = threading.Lock()
+        self.forward_dropped = 0
+        # the import source of a global tier (started by start()) and
+        # its dedup ledger; proto_received counts imports by transport
+        self.grpc_import: Optional[GrpcImportServer] = None
+        self.dedup = (DedupLedger(cfg.spool_dedup_window)
+                      if cfg.grpc_address else None)
+        self.proto_received: collections.Counter = collections.Counter()
+        self._proto_lock = threading.Lock()
         self.metric_sinks = [sink_mod.create_metric_sink(spec, cfg)
                              for spec in cfg.metric_sinks]
         self.metric_sinks.extend(extra_metric_sinks or [])
@@ -160,7 +196,32 @@ class Server:
             sink.start(None)
         for addr in self.config.statsd_listen_addresses:
             self._start_statsd(addr)
+        if self.config.grpc_address:
+            # global tier: the gRPC import source (server.go:673-682)
+            self.grpc_import = GrpcImportServer(
+                self.config.grpc_address, self._import_counted,
+                self._import_payload_counted,
+                handle_packet=self._grpc_packet_counted, dedup=self.dedup)
+            self.grpc_import.start()
         self._spawn(self._ticker, "flush-ticker")
+
+    def _count_proto(self, proto: str, n: int) -> None:
+        with self._proto_lock:
+            self.proto_received[proto] += n
+
+    def _import_counted(self, fm: sm.ForwardMetric) -> None:
+        self.aggregator.import_metric(fm)
+        self._count_proto("grpc", 1)
+
+    def _import_payload_counted(self, payload: bytes) -> tuple[int, int]:
+        ok, failed = self.aggregator.import_payload(payload)
+        self._count_proto("grpc", ok)
+        return ok, failed
+
+    def _grpc_packet_counted(self, buf: bytes) -> None:
+        """DogStatsD bytes over gRPC (networking.go:347)."""
+        self._count_proto("dogstatsd-grpc", 1)
+        self.process_packet_buffer(buf)
 
     def _spawn(self, target, name: str, *args) -> None:
         t = threading.Thread(target=target, args=args, daemon=True,
@@ -248,9 +309,9 @@ class Server:
 
     def flush(self):
         """One flush interval: evaluate, fan the metrics and events out to
-        every sink, and on a local tier hand the forwardable metrics to
-        the forwarder.  Serialized across callers.  Returns the
-        FlushResult."""
+        every sink, and on a local tier submit the forwardable metrics to
+        the forward pool (wait_forwards waits for them).  Serialized
+        across callers.  Returns the FlushResult."""
         with self._flush_serial:
             res = self.aggregator.flush(is_local=self.is_local)
             self.flush_count += 1
@@ -264,14 +325,51 @@ class Server:
                 except Exception:
                     logger.exception("sink %s flush failed", sink.name())
             if self.is_local and res.forward:
-                try:
-                    self.forwarder(res.forward)
-                except Exception:
-                    self.forward_errors += 1
-                    logger.exception("forward of %d metrics failed",
-                                     len(res.forward))
+                self._submit_forward(res.forward)
             self.last_flush = res
             return res
+
+    def _submit_forward(self, forward: list) -> None:
+        """Run one interval's forward on the pool under a slot; with
+        every slot taken (stalled forwards), drop the batch rather than
+        queue without bound (`veneur_tpu/core/server.py:1615-1645`)."""
+        if self._forward_slots.acquire(blocking=False):
+            try:
+                self._forward_pool.submit(self._forward_safely, forward,
+                                          self.flush_count)
+                return
+            except RuntimeError:        # the pool shut down mid-flush
+                self._forward_slots.release()
+        else:
+            logger.warning("%d forwards in flight; dropped %d forward "
+                           "metrics", self.FORWARD_MAX_IN_FLIGHT,
+                           len(forward))
+        with self._forward_lock:
+            self.forward_dropped += len(forward)
+
+    def _forward_safely(self, forward: list, epoch: int) -> None:
+        """One forward on the pool; `epoch` (the flush count) is the
+        interval half of each V1 chunk's identity."""
+        try:
+            if getattr(self.forwarder, "accepts_epoch", False):
+                self.forwarder(forward, epoch=epoch)
+            else:
+                self.forwarder(forward)
+        except Exception:
+            with self._forward_lock:
+                self.forward_errors += 1
+            logger.exception("forward of %d metrics failed", len(forward))
+        finally:
+            self._forward_slots.release()
+
+    def wait_forwards(self, timeout_s: float = 10.0) -> bool:
+        """Wait until no forward is in flight; False on timeout."""
+        deadline = time.monotonic() + timeout_s
+        while self._forward_slots._value < self.FORWARD_MAX_IN_FLIGHT:
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(0.005)
+        return True
 
     def _ticker(self) -> None:
         while not self._shutdown.wait(self.config.interval):
@@ -281,14 +379,22 @@ class Server:
                 logger.exception("flush failed")
 
     def shutdown(self) -> None:
-        """server.go:1417-1435: final flush if configured, then stop the
-        readers and the ticker and close every socket."""
+        """server.go:1417-1435: final flush if configured, a bounded wait
+        for the forwards in flight, then stop the readers, the ticker
+        and the import source, close the forward client and every
+        socket."""
         if self.config.flush_on_shutdown:
             try:
                 self.flush()
             except Exception:
                 logger.exception("final flush failed")
         self._shutdown.set()
+        self.wait_forwards(max(2.0, self.config.interval))
+        self._forward_pool.shutdown(wait=False)
+        if self.grpc_import is not None:
+            self.grpc_import.stop()
+        if isinstance(self.forwarder, ForwardClient):
+            self.forwarder.close()
         for sock in self._listeners:
             try:
                 sock.shutdown(socket.SHUT_RDWR)
