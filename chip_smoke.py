@@ -17,8 +17,10 @@ group-by read over 102,400 + 102,400 series in 4,096 cube groups, the
 meshed 100k-key global flush (on a one-card mesh, and on 2 x 2 and
 2 x 3 meshes over the same card) and the moments global flush on a
 2 x 2 one-card mesh beside the unmeshed one, and times them; then the
-three profiling entry points (`veneur_tpu_torch/scripts/`) with their
-kernels H1-H3.
+command line (`veneur_tpu_torch/cli/veneur.py`): in this process, two
+UDP intervals cut by POST /flush and by SIGTERM, and as two processes
+that hand a UDP port over by SIGUSR2; then the three profiling entry
+points (`veneur_tpu_torch/scripts/`) with their kernels H1-H3.
 Every phase that fails raises, and the script exits non-zero.  The last
 line of standard output is
 
@@ -36,9 +38,11 @@ import contextlib
 import json
 import math
 import os
+import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -4235,6 +4239,540 @@ def harness_times(err: dict, gen) -> list[dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The command line (veneur_tpu_torch/cli/veneur.py)
+# ---------------------------------------------------------------------------
+
+CLI_AGGS = ["min", "max", "count", "sum"]
+# the senders hold the listener's queued bytes under CLI_QUEUE_HIGH, as
+# /proc/net/udp reports them: a Linux host caps SO_RCVBUF at
+# net.core.rmem_max (212,992 bytes on the card's host), far below the
+# 8 MiB the configs ask for.  Under gVisor /proc/net/udp reports every
+# rx_queue as 0, so phase_cli_in_process also holds the lines sent but
+# not yet processed under CLI_WINDOW_LINES, by the server's own count
+CLI_QUEUE_HIGH = 96 << 10
+CLI_WINDOW_LINES = 5_000
+CLI_FLOWS = 4           # sender sockets, which SO_REUSEPORT spreads
+CLI_RCVBUF = 8 << 20    # read_buffer_size_bytes of the configs
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def udp_queues(port: int) -> tuple[int, int]:
+    """(bytes queued, datagrams dropped) summed over the UDP sockets
+    bound to `port`, from /proc/net/udp and /proc/net/udp6."""
+    queued = drops = 0
+    for name in ("/proc/net/udp", "/proc/net/udp6"):
+        try:
+            with open(name) as f:
+                rows = f.read().splitlines()[1:]
+        except FileNotFoundError:
+            continue
+        for row in rows:
+            cols = row.split()
+            if int(cols[1].rsplit(":", 1)[1], 16) == port:
+                queued += int(cols[4].split(":")[1], 16)
+                drops += int(cols[-1])
+    return queued, drops
+
+
+def _wait_queues(port: int, high: int, timeout: float = 300.0) -> None:
+    """Wait until the listener on `port` holds at most `high` queued
+    bytes."""
+    deadline = time.monotonic() + timeout
+    while udp_queues(port)[0] > high:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"udp port {port}: queues still hold "
+                               f"{udp_queues(port)[0]} bytes")
+        time.sleep(0.002)
+
+
+def _datagrams(lines, limit=4096) -> list[bytes]:
+    """Lines packed into datagrams of at most `limit` bytes."""
+    out, buf, size = [], [], 0
+    for line in lines:
+        if size + len(line) + 1 > limit and buf:
+            out.append(b"\n".join(buf))
+            buf, size = [], 0
+        buf.append(line)
+        size += len(line) + 1
+    return out + [b"\n".join(buf)] if buf else out
+
+
+def _cli_interval(rng, n_hist, per, n_sets, members, n_counters, n_gauges,
+                  sampled: bool) -> dict:
+    """One interval of phase_cli's traffic, shuffled: `n_hist` histogram
+    and timer keys of `per` integer samples (with `sampled`, every
+    fifth key's samples all at @0.5, so no key mixes weights and no
+    arrival order changes its quantiles), `n_sets` sets of `members`
+    members, `n_counters` counters (every fourth sampled @0.5 with
+    `sampled`) and `n_gauges` gauges written once.  Returns the
+    datagrams, the line count and each counter's expected total."""
+    lines, totals = [], {}
+    for k in range(n_hist):
+        rate = b"|@0.5" if sampled and k % 5 == 0 else b""
+        kind = b"h" if k % 2 == 0 else b"ms"
+        lines += [b"cli.h%d:%d|%s%s" % (k, v, kind, rate)
+                  for v in rng.integers(0, 1000, per)]
+    for k in range(n_sets):
+        lines += [b"cli.s%d:m%d|s" % (k, m) for m in range(members)]
+    for k, v in enumerate(rng.integers(1, 10, n_counters)):
+        rate = 0.5 if sampled and k % 4 == 0 else 1.0
+        lines.append(b"cli.c%d:%d|c" % (k, v)
+                     + (b"|@0.5" if rate != 1.0 else b""))
+        totals[f"cli.c{k}"] = v / rate
+    lines += [b"cli.g%d:%d|g" % (k, v)
+              for k, v in enumerate(rng.integers(-500, 500, n_gauges))]
+    lines = [lines[i] for i in rng.permutation(len(lines))]
+    return {"dgrams": _datagrams(lines), "lines": len(lines),
+            "totals": totals}
+
+
+def _paced_send(dgrams, addr, processed, check_every: int = 8) -> float:
+    """Send `dgrams` to `addr` over CLI_FLOWS sockets in turn, holding
+    the lines sent but not yet `processed()` (the server's count for
+    the interval) under CLI_WINDOW_LINES and, every `check_every`
+    datagrams, the listener's queued bytes under CLI_QUEUE_HIGH; then
+    wait until the server has processed every line and the queues are
+    empty.  Returns the seconds from the first datagram to then;
+    raises when the kernel dropped a datagram."""
+    port = addr[1]
+    drops0 = udp_queues(port)[1]
+    socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+             for _ in range(CLI_FLOWS)]
+
+    def wait_processed(n, timeout=300.0):
+        deadline = time.monotonic() + timeout
+        while processed() < n:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the server processed {processed()} "
+                                   f"of {n} lines")
+            time.sleep(0.002)
+
+    try:
+        t0 = time.perf_counter()
+        sent = 0
+        for i, d in enumerate(dgrams):
+            wait_processed(sent - CLI_WINDOW_LINES)
+            if i % check_every == 0:
+                _wait_queues(port, CLI_QUEUE_HIGH)
+            socks[i % CLI_FLOWS].sendto(d, addr)
+            sent += d.count(b"\n") + 1
+        wait_processed(sent)
+        _wait_queues(port, 0)
+        secs = time.perf_counter() - t0
+    finally:
+        for s in socks:
+            s.close()
+    require(processed() == sent, f"{processed()} lines processed of "
+            f"{sent} sent")
+    drops = udp_queues(port)[1] - drops0
+    require(drops == 0, f"the kernel dropped {drops} datagrams on {port}")
+    return secs
+
+
+def _http(port, path, method="GET") -> tuple[int, bytes]:
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=b"" if method == "POST" else None,
+                                 method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _wait_file(path, alive, what, timeout=300.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        require(alive(), f"{what} ended before writing {path}")
+        require(time.monotonic() < deadline, f"no {path} from {what}")
+        time.sleep(0.01)
+
+
+def _jsonl_frames(path) -> list[dict]:
+    """The jsonl sink's flushes: one {(name, tags, type): value} dict a
+    frame record, each frame's row count checked."""
+    frames, rows = [], {}
+    with open(path) as f:
+        for line in f:
+            row = json.loads(line)
+            if row.get("flush"):
+                require(row["metrics"] == len(rows), "a torn frame")
+                frames.append(rows)
+                rows = {}
+            else:
+                key = (row["name"], tuple(row["tags"]), row["type"])
+                require(key not in rows, f"{key} twice in a frame")
+                rows[key] = row["value"]
+    require(not rows, f"{path}: rows after the last frame")
+    return frames
+
+
+def _require_frame(got: dict, want: dict, totals: dict, what: str) -> None:
+    """A jsonl frame equal to the reference flush, every value bitwise,
+    and its counters equal to the totals sent."""
+    require(set(got) == set(want),
+            f"{what}: {len(set(got) ^ set(want))} keys differ, e.g. "
+            f"{sorted(set(got) ^ set(want))[:4]}")
+    bad = [k for k, v in want.items() if got[k] != v]
+    require(not bad, f"{what}: {len(bad)} values differ, e.g. "
+            f"{[(k, got[k], want[k]) for k in bad[:4]]}")
+    sent = {k[0]: v for k, v in got.items()
+            if k[0] in totals and k[2] == "counter"}
+    require(sent == totals, f"{what}: counter totals differ from what was "
+            f"sent ({len(totals)} counters sent, {len(sent)} flushed)")
+    require(any(k[0].endswith("99percentile") for k in got),
+            f"{what}: no percentile emitted")
+
+
+def _cli_feeder(st: dict, ports_path: str, iv1: dict, iv2: dict,
+                servers: list) -> None:
+    """phase_cli's feeder thread: waits for the port file, sends the
+    first interval, POSTs /flush, reads /config/json and one /query,
+    sends the second interval and signals SIGTERM to this process.
+    `servers` holds the Server the CLI started, whose line count paces
+    the sends.  Records what it saw in `st`; an exception lands in
+    st["error"]."""
+    signalled = False
+    try:
+        _wait_file(ports_path, lambda: not st.get("main_done"), "the CLI")
+        st["boot_s"] = time.perf_counter() - st["t0"]
+        ports = json.load(open(ports_path))
+        require(ports["pid"] == os.getpid() and len(servers) == 1, ports)
+        agg = servers[0].aggregator
+        addr = tuple(ports["statsd"][0][1])
+        http_port = ports["http"][1]
+        st["ingest_s"] = _paced_send(iv1["dgrams"], addr,
+                                     lambda: agg.processed)
+        t = time.perf_counter()
+        st["flush"] = _http(http_port, "/flush", "POST")
+        st["flush_ms"] = (time.perf_counter() - t) * 1e3
+        st["config_json"] = _http(http_port, "/config/json")
+        st["query"] = _http(http_port, "/query?name=cli.h1&q=0.5,0.99")
+        st["ingest2_s"] = _paced_send(iv2["dgrams"], addr,
+                                      lambda: agg.processed)
+    except BaseException as e:      # re-raised by phase_cli
+        st["error"] = e
+    finally:
+        if os.path.exists(ports_path) and not st.get("main_done"):
+            signalled = True
+            os.kill(os.getpid(), signal.SIGTERM)
+        st["signalled"] = signalled
+
+
+def _query_fields(body: dict) -> dict:
+    return {k: body[k] for k in ("name", "quantiles", "count", "sum", "min",
+                                 "max", "family", "slots_fused")}
+
+
+def phase_cli_in_process(d: str, seed=13) -> dict:
+    """`cli.veneur.main` in this process's main thread, as the command
+    line runs it (signals included), on a YAML with two UDP readers,
+    the HTTP API with /config and POST /flush, a 3600 s interval, the
+    query ring and a jsonl sink.  A feeder thread sends two intervals
+    over UDP (`_paced_send`: paced by the server's line count and the
+    listener's queues, and each ended when the server has processed
+    every line and the queues are empty), and cuts the first with POST
+    /flush and the second with SIGTERM (the final flush).  The first holds sampled histogram keys, so its flush runs
+    B1; the second has unit weights only, so B3.  Each frame must equal
+    a port Server on the CPU fed the same datagrams, bitwise, with its
+    counter totals equal to what was sent; /config/json must be the
+    loaded config's redacted dump, /query the CPU server's answer."""
+    import dataclasses
+
+    from veneur_tpu_torch import config as config_mod
+    from veneur_tpu_torch.cli import veneur as cli
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.sinks.simple import ChannelMetricSink
+
+    rng = np.random.default_rng(seed)
+    iv1 = _cli_interval(rng, 10_000, 64, 1_000, 100, 10_000, 1_000,
+                        sampled=True)
+    iv2 = _cli_interval(rng, 1_000, 64, 100, 100, 1_000, 100, sampled=False)
+    ports_path = os.path.join(d, "inproc-ports.json")
+    frames_path = os.path.join(d, "inproc.jsonl")
+    cfg_path = os.path.join(d, "inproc.yaml")
+    with open(cfg_path, "w") as f:
+        json.dump({
+            "statsd_listen_addresses": ["udp://127.0.0.1:0"],
+            "num_readers": 2, "read_buffer_size_bytes": CLI_RCVBUF,
+            "http_address": "127.0.0.1:0", "port_file": ports_path,
+            "http": {"config": True}, "http_flush_endpoint": True,
+            "interval": "3600s", "query_window_slots": 8,
+            "flush_on_shutdown": True, "hostname": "cli",
+            "percentiles": PERCENTILES, "aggregates": CLI_AGGS,
+            "metric_sinks": [{"kind": "jsonl",
+                              "config": {"path": frames_path}}]}, f)
+
+    # the Server the CLI starts, for its line count
+    servers, start = [], Server.start
+
+    def recording_start(self):
+        servers.append(self)
+        return start(self)
+
+    for mod in _kernel_modules():
+        mod.reset_launches()
+    st = {"t0": time.perf_counter()}
+    feeder = threading.Thread(target=_cli_feeder, daemon=True,
+                              args=(st, ports_path, iv1, iv2, servers),
+                              name="cli-feeder")
+    Server.start = recording_start
+    feeder.start()
+    try:
+        rc = cli.main(["-f", cfg_path, "-device", DEVICE])
+    finally:
+        Server.start = start
+        st["main_done"] = True
+        feeder.join(timeout=600)
+    launches = _read_launches()
+    require(not feeder.is_alive(), "the CLI feeder hung")
+    if "error" in st:
+        raise st["error"]
+    require(st["signalled"] and rc == 0, f"the CLI returned {rc}")
+
+    cfg = config_mod.read_config(cfg_path)
+    sink = ChannelMetricSink()
+    ref = Server(dataclasses.replace(cfg, statsd_listen_addresses=[],
+                                     metric_sinks=[]),
+                 extra_metric_sinks=[sink], device="cpu")
+    frames = _jsonl_frames(frames_path)
+    require(len(frames) == 2, f"{len(frames)} frames, not 2")
+    for i, iv in enumerate((iv1, iv2)):
+        for dg in iv["dgrams"]:
+            ref.process_packet_buffer(dg)
+        ref.flush()
+        want = {(m.name, tuple(m.tags), m.type): m.value
+                for m in sink.queue.get(timeout=60)}
+        _require_frame(frames[i], want, iv["totals"], f"CLI frame {i + 1}")
+        if i == 0:
+            code, body = st["query"]
+            wcode, wbody = ref.query.serve({"name": ["cli.h1"],
+                                            "q": ["0.5,0.99"]})
+            require(code == wcode == 200, (code, body[:200]))
+            require(_query_fields(json.loads(body)) == _query_fields(
+                json.loads(json.dumps(wbody))), "GET /query differs")
+    require(st["flush"][0] == 200
+            and json.loads(st["flush"][1]) == {"flush_count": 1},
+            st["flush"])
+    code, body = st["config_json"]
+    require(code == 200 and json.loads(body) == json.loads(json.dumps(
+        config_mod.redacted_dict(cfg), default=str)),
+        "GET /config/json is not the loaded config")
+    b1, b3 = launches["weighted_eval"], launches["uniform_eval"]
+    require(b1 >= 1 and b3 >= 1,
+            f"the CLI's flushes missed a kernel: B1 {b1}, B3 {b3}")
+    rate = iv1["lines"] / st["ingest_s"]
+    card_log(f"CLI in process: port file {st['boot_s']:.2f} s after "
+             f"main(); {iv1['lines']} lines in {len(iv1['dgrams'])} "
+             f"datagrams through 2 UDP readers in {st['ingest_s']:.3f} s "
+             f"({rate:.0f} lines/s, at most {CLI_WINDOW_LINES} lines in "
+             f"flight, none lost); POST /flush {st['flush_ms']:.1f} ms; "
+             f"both frames (B1 {b1}, then B3 {b3} at SIGTERM) bitwise "
+             f"the CPU server's, counter totals as sent; /config/json "
+             f"and /query as expected")
+    return {"boot_s": st["boot_s"], "ingest_lines": iv1["lines"],
+            "ingest_datagrams": len(iv1["dgrams"]),
+            "ingest_s": st["ingest_s"], "ingest_lines_per_s": rate,
+            "ingest2_lines_per_s": iv2["lines"] / st["ingest2_s"],
+            "flush_ms": st["flush_ms"], "launches": launches}
+
+
+def _compute_apps() -> list[str]:
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,"
+                          "used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return [r.strip() for r in smi.stdout.splitlines() if r.strip()]
+
+
+class _Handoff:
+    """The real command line as processes.  `start()` launches
+    `-validate-config` on example.yaml, `-version` and process A
+    (`python -m veneur_tpu_torch.cli.veneur`, UDP on port 0), so that
+    their boots overlap phase_cli_in_process; `run()` then streams
+    counters to A (a datagram of `per` lines every `gap_s`, never more
+    than CLI_QUEUE_HIGH queued bytes), boots B on A's UDP port, read
+    from A's port file, so it joins the SO_REUSEPORT group, SIGUSR2s A,
+    which must drain and exit 0, streams `after` more datagrams, and
+    SIGTERMs B, which must exit 0.  The counters across both jsonl files
+    must equal what was sent; with A and B up, nvidia-smi must list two
+    more compute processes than before; `-validate-config` must exit 1
+    naming an unported option and `-version` exit 0."""
+
+    def __init__(self, d: str, per=50, gap_s=0.002, after=1000):
+        self.d, self.per, self.gap_s, self.after = d, per, gap_s, after
+        self.env = dict(os.environ)
+        self.env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (ROOT, self.env.get("PYTHONPATH")) if p)
+        self.procs, self.logs, self.checks = {}, [], {}
+        self.sent = 0
+        self.stop = threading.Event()
+        self.sender_error = []
+
+    def _cfg(self, name, addr) -> dict:
+        return {"statsd_listen_addresses": [f"udp://{addr}"],
+                "num_readers": 2, "read_buffer_size_bytes": CLI_RCVBUF,
+                "http_address": "127.0.0.1:0",
+                "port_file": os.path.join(self.d, f"{name}-ports.json"),
+                "interval": "3600s", "flush_on_shutdown": True,
+                "hostname": name, "metric_sinks": [{
+                    "kind": "jsonl",
+                    "config": {"path": os.path.join(self.d,
+                                                    f"{name}.jsonl")}}]}
+
+    def _cli(self, args, **kw) -> subprocess.Popen:
+        return subprocess.Popen(
+            [sys.executable, "-m", "veneur_tpu_torch.cli.veneur"] + args,
+            cwd=ROOT, env=self.env, **kw)
+
+    def _boot(self, name, addr) -> dict:
+        """Start process `name`, its output to <name>.log; -> its port
+        file once written."""
+        path = os.path.join(self.d, f"{name}.yaml")
+        with open(path, "w") as f:
+            json.dump(self._cfg(name, addr), f)
+        out = open(os.path.join(self.d, f"{name}.log"), "w")
+        self.logs.append(out)
+        self.procs[name] = self._cli(["-f", path, "-device", DEVICE],
+                                     stdout=out, stderr=subprocess.STDOUT)
+        return os.path.join(self.d, f"{name}-ports.json")
+
+    def _ports(self, name, path) -> dict:
+        proc = self.procs[name]
+        _wait_file(path, lambda: proc.poll() is None, f"process {name}")
+        ports = json.load(open(path))
+        require(ports["pid"] == proc.pid, ports)
+        return ports
+
+    def start(self) -> None:
+        self.before = _compute_apps()
+        for name, args in (("validate", ["-f", os.path.join(
+                ROOT, "example.yaml"), "-validate-config"]),
+                           ("version", ["-version"])):
+            self.checks[name] = self._cli(args, text=True,
+                                          stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE)
+        self.t_a = time.time()
+        self.a_ports = self._boot("a", "127.0.0.1:0")
+
+    def _sender(self, addr) -> None:
+        socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+                 for _ in range(CLI_FLOWS)]
+        dgram = b"\n".join([b"cli.handoff:1|c"] * self.per)
+        try:
+            i = 0
+            while not self.stop.is_set():
+                _wait_queues(addr[1], CLI_QUEUE_HIGH)
+                socks[i % CLI_FLOWS].sendto(dgram, addr)
+                self.sent += self.per
+                i += 1
+                time.sleep(self.gap_s)
+        except BaseException as e:      # re-raised by run()
+            self.sender_error.append(e)
+        finally:
+            for sock in socks:
+                sock.close()
+
+    def run(self) -> dict:
+        ports = self._ports("a", self.a_ports)
+        boot_a = os.path.getmtime(self.a_ports) - self.t_a
+        addr = tuple(ports["statsd"][0][1])
+        t_send = threading.Thread(target=self._sender, args=(addr,),
+                                  daemon=True)
+        t_send.start()
+        t_b = time.time()
+        b_ports = self._boot("b", f"{addr[0]}:{addr[1]}")
+        self._ports("b", b_ports)
+        boot_b = os.path.getmtime(b_ports) - t_b
+        apps = _compute_apps()
+        require(len(apps) == len(self.before) + 2,
+                f"nvidia-smi lists {apps} with A and B up, {self.before} "
+                "before")
+        sent_before_usr2 = self.sent
+        self.procs["a"].send_signal(signal.SIGUSR2)
+        rc_a = self.procs["a"].wait(timeout=120)
+        require(rc_a == 0, f"process A exited {rc_a} after SIGUSR2")
+        goal = self.sent + self.after * self.per    # to B alone
+        deadline = time.monotonic() + 120
+        while self.sent < goal and not self.sender_error:
+            require(time.monotonic() < deadline, "the sender stalled")
+            time.sleep(0.01)
+        self.stop.set()
+        t_send.join(timeout=60)
+        require(not t_send.is_alive() and not self.sender_error,
+                f"the sender failed: {self.sender_error}")
+        _wait_queues(addr[1], 0)
+        self.procs["b"].send_signal(signal.SIGTERM)
+        rc_b = self.procs["b"].wait(timeout=120)
+        require(rc_b == 0, f"process B exited {rc_b} after SIGTERM")
+        got = {}
+        for name in ("a", "b"):
+            frames = _jsonl_frames(os.path.join(self.d, f"{name}.jsonl"))
+            got[name] = sum(f.get(("cli.handoff", (), "counter"), 0.0)
+                            for f in frames)
+        require(got["a"] > 0 and got["b"] > 0, got)
+        require(got["a"] + got["b"] == self.sent,
+                f"the handoff lost {self.sent - got['a'] - got['b']} of "
+                f"{self.sent} lines (A {got['a']}, B {got['b']})")
+        _, err_v = self.checks["validate"].communicate(timeout=120)
+        require(self.checks["validate"].returncode == 1
+                and "not supported here" in err_v,
+                f"-validate-config example.yaml: rc "
+                f"{self.checks['validate'].returncode}, {err_v[-300:]}")
+        out_ver, _ = self.checks["version"].communicate(timeout=120)
+        require(self.checks["version"].returncode == 0
+                and out_ver.startswith("veneur-tpu-torch "), out_ver)
+        card_log(f"CLI handoff: A's port file {boot_a:.2f} s after its "
+                 f"start, B's {boot_b:.2f} s after its start on A's UDP "
+                 f"port; nvidia-smi listed two more compute processes "
+                 f"({apps}); SIGUSR2 to A (exit 0) after "
+                 f"{sent_before_usr2} lines, SIGTERM to B (exit 0): "
+                 f"{self.sent} lines sent, A flushed {got['a']:.0f} and B "
+                 f"{got['b']:.0f}, none lost; -validate-config "
+                 f"example.yaml exit 1 "
+                 f"({err_v.strip().splitlines()[-1][:120]}); -version "
+                 f"{out_ver.strip()}")
+        return {"boot_a_s": boot_a, "boot_b_s": boot_b, "sent": self.sent,
+                "a": got["a"], "b": got["b"], "compute_apps": apps}
+
+    def close(self, failed: bool) -> None:
+        self.stop.set()
+        for p in list(self.procs.values()) + list(self.checks.values()):
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        for out in self.logs:
+            out.close()
+            if failed:
+                with open(out.name) as f:
+                    log(f"--- {out.name}:\n{f.read()[-4000:]}")
+
+
+def phase_cli() -> dict:
+    """The command line on the card: in this process (the launch
+    counts), then as processes (the handoff), whose boots overlap."""
+    import tempfile
+
+    import torch
+    # this process's own context first, so that the count of compute
+    # processes before A and B includes it
+    torch.empty(1, device=DEVICE)
+    with tempfile.TemporaryDirectory() as d:
+        handoff = _Handoff(d)
+        failed = True
+        try:
+            handoff.start()
+            inproc = phase_cli_in_process(d)
+            out = {**inproc, "handoff": handoff.run()}
+            failed = False
+        finally:
+            handoff.close(failed)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4277,6 +4815,14 @@ def main() -> int:
     meshed += moments_mesh_cell()
     launches = _read_launches()
     card_log(f"flush path launches: {launches}")
+    # the command line, counted on its own and added to the flush path's:
+    # its flushes are the same path, driven the way users start it.  It
+    # installs the crash hooks, so from here a thread that dies ends the
+    # script with exit code 2
+    cli = phase_cli()
+    card_log(f"command-line launches: {cli['launches']}")
+    for k, n in cli["launches"].items():
+        launches[k] += n
     # the profiling path, counted on its own: its entry points launch
     # B1, B3, B4 and B5 hundreds of times, which are not flushes
     for mod in _kernel_modules():
@@ -4317,7 +4863,7 @@ def main() -> int:
                    "flushes": full, "cube_cell": cube,
                    "grpc_slice": grpc_slice, "grpc_cell": grpc,
                    "meshed_flushes": meshed, "meshed_b8_b9": b8_b9,
-                   "harness": harness}, f,
+                   "cli": cli, "harness": harness}, f,
                   indent=1)
     log(f"total {time.perf_counter() - t_start:.1f}s; raw numbers in "
         f"chiprun_out/chip_smoke.json")

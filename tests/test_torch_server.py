@@ -601,7 +601,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     the query plane and serve one /query over HTTP, then a meshed server
     on two logical CPU devices, import every kernel module and run the
     three profiling entry points at a tiny shape, then forward from a
-    port local to a port global over gRPC: no jax* and no veneur_tpu
+    port local to a port global over gRPC, then read a YAML config and
+    validate it through the command line: no jax* and no veneur_tpu
     module (its generated protos included, nor the JAX package's
     scripts) may load (checked in a fresh process, since this one
     already imported both)."""
@@ -673,6 +674,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         finally:
             local.shutdown()
             glob.shutdown()
+        import os, tempfile
+        from veneur_tpu_torch.cli import veneur as cli
+        from veneur_tpu_torch.config import read_config
+        path = os.path.join(tempfile.mkdtemp(), "cli.yaml")
+        with open(path, "w") as f:
+            f.write("interval: 5s\\nhttp_address: 127.0.0.1:0\\n"
+                    "metric_sinks: [{kind: jsonl}]\\n")
+        assert read_config(path, environ={}).interval == 5.0
+        assert cli.main(["-f", path, "-validate-config"]) == 0
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "veneur_tpu" or m.startswith("veneur_tpu.")

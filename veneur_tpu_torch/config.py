@@ -1,20 +1,56 @@
-"""Server configuration: every field of `veneur_tpu.config.Config`.
+"""Server configuration: every field of `veneur_tpu.config.Config`, and
+its YAML loader.
 
 The same field names and defaults as the JAX package's `Config`
 (`config.go:12-134`), so one configuration describes both servers.  The
 fields this package serves come first; every other field is accepted
 at its default and raises NotImplementedError at any other value
-(UNSUPPORTED below says what each needs).  `native_ingest` is the one
-field left out: the package has no native ingest engine, so asking for
-it fails as an unknown argument.
+(UNSUPPORTED below says what each needs), whether it comes from a
+`Config(...)` call, a YAML file or a `VENEUR_*` environment override.
+`native_ingest` is the one field left out: the package has no native
+ingest engine, so `Config(native_ingest=...)` fails as an unknown
+argument, and the loaders accept the key only when it is false.
+
+The loader is the JAX package's (`util/config/config.go:16-63`): the file
+is template-expanded (`$NAME` / `${NAME}` from the environment), parsed
+as YAML (optionally rejecting unknown fields), overridden by `VENEUR_*`
+environment variables, and completed by `Config.apply_defaults`.
 """
 
 from __future__ import annotations
 
+import os
+import re
+import socket
 from dataclasses import MISSING, dataclass, field, fields
-from typing import Optional
+from typing import Any, Optional
+
+import yaml
 
 from veneur_tpu_torch import sinks as sink_mod
+
+
+def parse_duration(v: Any) -> float:
+    """Go-style duration ("10s", "50ms", "1m30s") -> seconds.
+
+    Raises ValueError on anything that isn't a number or a duration
+    string (time.ParseDuration errors on malformed input too).
+    """
+    if isinstance(v, bool) or not isinstance(v, (int, float, str)):
+        raise ValueError(f"invalid duration: {v!r}")
+    if isinstance(v, (int, float)):
+        return float(v)
+    s = v.strip()
+    if re.fullmatch(r"[0-9.]+", s):
+        return float(s)
+    units = {"ns": 1e-9, "us": 1e-6, "µs": 1e-6, "ms": 1e-3,
+             "s": 1.0, "m": 60.0, "h": 3600.0}
+    if not re.fullmatch(r"(?:[0-9.]+(?:ns|us|µs|ms|s|m|h))+", s):
+        raise ValueError(f"invalid duration: {v!r}")
+    total = 0.0
+    for num, unit in re.findall(r"([0-9.]+)(ns|us|µs|ms|s|m|h)", s):
+        total += float(num) * units[unit]
+    return total
 
 
 @dataclass
@@ -108,8 +144,23 @@ class Config:
     hostname: str = ""
     extend_tags: list[str] = field(default_factory=list)
 
-    # behavior
+    # behavior: a final flush at shutdown; flushes at wall-clock
+    # multiples of the interval; no hostname derived when it is empty
     flush_on_shutdown: bool = False
+    synchronize_with_interval: bool = False
+    omit_empty_hostname: bool = False
+    # declared by the JAX package and read nowhere there either
+    num_workers: int = 1
+
+    # the command line (cli/veneur.py): the HTTP API's address, the file
+    # its resolved ports go to, the gated POST /quitquitquit, GET
+    # /config/{json,yaml} and POST /flush routes, and DEBUG logging
+    http_address: str = ""
+    port_file: str = ""
+    http_quit: bool = False
+    http_config_endpoint: bool = False
+    http_flush_endpoint: bool = False
+    debug: bool = False
 
     # plugins
     metric_sinks: list[sink_mod.SinkSpec] = field(default_factory=list)
@@ -118,7 +169,6 @@ class Config:
     # at any other value (UNSUPPORTED)
     grpc_listen_addresses: list[str] = field(default_factory=list)
     ssf_listen_addresses: list[str] = field(default_factory=list)
-    http_address: str = ""
     stats_address: str = ""
     spool_dir: str = ""
     spool_max_bytes: int = 64 * 1024 * 1024
@@ -149,7 +199,6 @@ class Config:
     distributed_coordinator: str = ""
     distributed_num_processes: int = 0
     distributed_process_id: int = -1
-    num_workers: int = 1
     digest_float64: bool = False
     ingest_reader_shards: int = 0
     ingest_reader_pinning: bool = False
@@ -163,10 +212,8 @@ class Config:
     num_span_workers: int = 1
     trace_max_length_bytes: int = 16 * 1024 * 1024
     span_channel_capacity: int = 100
-    omit_empty_hostname: bool = False
     tags_exclude: list[str] = field(default_factory=list)
     flush_watchdog_missed_flushes: int = 0
-    synchronize_with_interval: bool = False
     compilation_cache_dir: str = "~/.cache/veneur-tpu-xla"
     prewarm_flush_shapes: bool = False
     prewarm_depths: list[int] = field(default_factory=lambda: [4, 32])
@@ -176,7 +223,6 @@ class Config:
     flush_delta_chunk_keys: int = 0
     flush_delta_nbuf: int = 2
     flush_resident_device_assembly: Optional[bool] = None
-    debug: bool = False
     enable_profiling: bool = False
     profiling_cpu_hz: int = 100
     profiling_cpu_max_seconds: float = 60.0
@@ -186,10 +232,6 @@ class Config:
     trace_flush_sample_rate: float = 1.0
     trace_seed: int = 0
     trace_ring_capacity: int = 512
-    http_quit: bool = False
-    http_config_endpoint: bool = False
-    http_flush_endpoint: bool = False
-    port_file: str = ""
     mutex_profile_fraction: int = 0
     block_profile_rate: int = 0
     sentry_dsn: str = ""
@@ -207,6 +249,14 @@ class Config:
     veneur_metrics_additional_tags: list[str] = field(default_factory=list)
 
     def __post_init__(self) -> None:
+        self.validate()
+
+    def validate(self) -> None:
+        """Refuse every UNSUPPORTED option away from its default
+        (NotImplementedError naming it), check the served ones as the
+        JAX package does (ValueError) and apply its clamps.  Runs on
+        construction and again at the end of each loader, after the
+        file, the environment overrides and apply_defaults."""
         self.metric_sinks = [
             s if isinstance(s, sink_mod.SinkSpec)
             else sink_mod.SinkSpec.from_dict(s) for s in self.metric_sinks]
@@ -272,6 +322,58 @@ class Config:
                     "construction (set a budget; overflow degrades "
                     "into the accounted veneur.cube.other row)")
 
+    def apply_defaults(self) -> None:
+        """The JAX package's derived defaults and clamps
+        (`config.go:114-134`): the aggregates, this host's name unless
+        omit_empty_hostname, a positive interval.  Only the loaders call
+        it, as in the JAX package; validate() then checks the result."""
+        if not self.aggregates:
+            self.aggregates = ["min", "max", "count"]
+        if not self.hostname and not self.omit_empty_hostname:
+            self.hostname = socket.gethostname()
+        if self.interval <= 0:
+            self.interval = 10.0
+        if self.spool_fsync not in ("always", "rotate", "never"):
+            raise ValueError(
+                f"spool_fsync must be always|rotate|never, "
+                f"got {self.spool_fsync!r}")
+        if self.egress_queue_depth <= 0:
+            self.egress_queue_depth = 128
+        if self.egress_max_retries < 0:
+            self.egress_max_retries = 0
+        if self.egress_retry_backoff < 0:
+            self.egress_retry_backoff = 0.0
+        if self.egress_breaker_threshold < 1:
+            self.egress_breaker_threshold = 1
+        if self.egress_breaker_reset < 0:
+            self.egress_breaker_reset = 0.0
+        if self.egress_spool_replay_interval <= 0:
+            self.egress_spool_replay_interval = 0.5
+        if self.retention_max_bytes <= 0:
+            self.retention_max_bytes = 256 * 1024 * 1024
+        if self.retention_max_age < 0:
+            self.retention_max_age = 0.0
+        if self.metric_max_length <= 0:
+            self.metric_max_length = 4096
+        if self.ingest_reader_shards < 0:
+            self.ingest_reader_shards = 0
+        if self.ingest_reader_batch < 0:
+            self.ingest_reader_batch = 0
+        if self.ingest_ring_slots < 0:
+            self.ingest_ring_slots = 0
+        if self.ingest_simd not in ("auto", "scalar", "sse2", "avx2"):
+            raise ValueError(
+                f"ingest_simd must be auto|scalar|sse2|avx2, "
+                f"got {self.ingest_simd!r}")
+        if self.ingest_backend not in ("auto", "recvmmsg", "io_uring"):
+            raise ValueError(
+                f"ingest_backend must be auto|recvmmsg|io_uring, "
+                f"got {self.ingest_backend!r}")
+        if self.read_buffer_size_bytes <= 0:
+            self.read_buffer_size_bytes = 2 * 1024 * 1024
+        if self.span_channel_capacity <= 0:
+            self.span_channel_capacity = 100
+
     @property
     def is_local(self) -> bool:
         """Server.IsLocal (server.go:1440-1442): local iff forwarding."""
@@ -324,7 +426,6 @@ _SPANS = "SSF span ingest"
 UNSUPPORTED = {
     "grpc_listen_addresses": "gRPC ingest listeners",
     "ssf_listen_addresses": _SPANS,
-    "http_address": "the CLI's HTTP listener; start http_api.HttpApi",
     "stats_address": "self-telemetry",
     **dict.fromkeys(("spool_dir", "spool_max_bytes", "spool_max_age",
                      "spool_fsync", "spool_replay_interval",
@@ -345,7 +446,6 @@ UNSUPPORTED = {
                     "the cardinality guard"),
     **dict.fromkeys(("distributed_coordinator", "distributed_num_processes",
                      "distributed_process_id"), "multi-host meshes"),
-    "num_workers": "worker sharding of the aggregator",
     "digest_float64": "float64 digest evaluation",
     **dict.fromkeys(("ingest_reader_shards", "ingest_reader_pinning",
                      "ingest_reader_batch", "ingest_simd", "ingest_backend",
@@ -357,10 +457,8 @@ UNSUPPORTED = {
                      "span_channel_capacity", "span_sinks",
                      "indicator_span_timer_name",
                      "objective_span_timer_name"), _SPANS),
-    "omit_empty_hostname": "hostname tag policy",
     "tags_exclude": "per-sink tag exclusion",
     "flush_watchdog_missed_flushes": "the flush watchdog",
-    "synchronize_with_interval": "wall-clock aligned flushes",
     "flush_upload_chunks": "chunked flush uploads",
     # the meshed flush always places each device's blocks directly
     "flush_presharded_staging": "the funnel placement of the meshed "
@@ -368,17 +466,14 @@ UNSUPPORTED = {
     **dict.fromkeys(("flush_resident_arenas", "flush_delta_chunk_keys",
                      "flush_delta_nbuf", "flush_resident_device_assembly"),
                     "device-resident arenas"),
-    **dict.fromkeys(("debug", "enable_profiling", "profiling_cpu_hz",
+    **dict.fromkeys(("enable_profiling", "profiling_cpu_hz",
                      "profiling_cpu_max_seconds",
                      "profiling_timeline_capacity", "profiling_use_pyspy",
                      "mutex_profile_fraction", "block_profile_rate"),
                     _PROFILING),
     **dict.fromkeys(("trace_flush_enabled", "trace_flush_sample_rate",
                      "trace_seed", "trace_ring_capacity"), _TRACING),
-    **dict.fromkeys(("http_quit", "http_config_endpoint",
-                     "http_flush_endpoint", "port_file"),
-                    "the HTTP debug API"),
-    "sentry_dsn": "crash reporting",
+    "sentry_dsn": "crash reports to Sentry",
     **dict.fromkeys(("tls_key", "tls_certificate",
                      "tls_authority_certificate"),
                     "TLS listeners and forwarding"),
@@ -389,3 +484,152 @@ UNSUPPORTED = {
     "veneur_metrics_scopes": "self-telemetry",
     "veneur_metrics_additional_tags": "self-telemetry",
 }
+
+
+# -- the loader (`util/config/config.go:16-63`) -----------------------------
+
+_LIST_FIELDS_OF_FLOAT = {"percentiles"}
+# fields accepting Go-style duration strings ("10s", "500ms")
+_DURATION_FIELDS = {"interval", "forward_timeout", "ingest_drain_interval",
+                    "forward_retry_backoff", "spool_max_age",
+                    "spool_replay_interval", "checkpoint_interval",
+                    "egress_retry_backoff", "egress_breaker_reset",
+                    "egress_spool_max_age",
+                    "egress_spool_replay_interval",
+                    "query_slot_seconds", "retention_max_age"}
+_ENV_PREFIX = "VENEUR_"
+
+
+def _coerce(key: str, value: Any) -> Any:
+    if key in _DURATION_FIELDS:
+        return parse_duration(value)
+    if key in _LIST_FIELDS_OF_FLOAT:
+        return [float(x) for x in value]
+    return value
+
+
+def _refuse_native_ingest(value: Any) -> None:
+    """The JAX package's `native_ingest` switch, which this package has
+    no field for: false (what it does) passes, true raises."""
+    if value:
+        raise NotImplementedError(
+            f"config option native_ingest={value!r} is not supported here "
+            "(the native ingest engine, ROADMAP A9); set it false or "
+            "leave it out")
+
+
+def _load(data: dict, strict: bool) -> Config:
+    """YAML mapping -> Config, before the overrides, the defaults and
+    validate()."""
+    cfg = Config()
+    known = {f.name for f in fields(Config)}
+    for key, value in (data or {}).items():
+        if key == "features":
+            for fk, fv in (value or {}).items():
+                if fk in ("enable_metric_sink_routing",
+                          "diagnostics_metrics_enabled"):
+                    setattr(cfg, fk, bool(fv))
+                elif strict:
+                    raise ValueError(f"unknown config field features.{fk}")
+        elif key == "http":
+            cfg.http_config_endpoint = bool((value or {}).get("config"))
+        elif key in ("metric_sinks", "span_sinks"):
+            setattr(cfg, key, [sink_mod.SinkSpec.from_dict(d)
+                               for d in value])
+        elif key == "native_ingest":
+            _refuse_native_ingest(value)
+        elif key in known:
+            setattr(cfg, key, _coerce(key, value))
+        elif strict:
+            raise ValueError(f"unknown config field {key!r}")
+    return cfg
+
+
+def load_config_dict(data: dict, strict: bool = False,
+                     apply_defaults: bool = True) -> Config:
+    """A parsed YAML mapping -> Config.  strict rejects unknown fields
+    (ValueError); an unsupported option raises NotImplementedError."""
+    cfg = _load(data, strict)
+    if apply_defaults:
+        cfg.apply_defaults()
+    cfg.validate()
+    return cfg
+
+
+def _env_overrides(cfg: Config, environ: dict[str, str]) -> None:
+    """envconfig-style overrides: VENEUR_<FIELDNAME> or
+    VENEUR_<FIELD_NAME> (util/config:57-60)."""
+    raw = environ.get("VENEUR_NATIVEINGEST",
+                      environ.get("VENEUR_NATIVE_INGEST"))
+    if raw is not None:
+        _refuse_native_ingest(raw.lower() in ("1", "true", "yes"))
+    for f in fields(Config):
+        env_key = _ENV_PREFIX + f.name.replace("_", "").upper()
+        alt_key = _ENV_PREFIX + f.name.upper()
+        raw = environ.get(env_key, environ.get(alt_key))
+        if raw is None:
+            continue
+        cur = getattr(cfg, f.name)
+        if isinstance(cur, bool):
+            setattr(cfg, f.name, raw.lower() in ("1", "true", "yes"))
+        elif isinstance(cur, int):
+            setattr(cfg, f.name, int(raw))
+        elif isinstance(cur, float):
+            setattr(cfg, f.name, parse_duration(raw)
+                    if f.name in _DURATION_FIELDS else float(raw))
+        elif isinstance(cur, list):
+            items = [x for x in raw.split(",") if x]
+            if f.name in _LIST_FIELDS_OF_FLOAT:
+                setattr(cfg, f.name, [float(x) for x in items])
+            else:
+                setattr(cfg, f.name, items)
+        elif isinstance(cur, str):
+            setattr(cfg, f.name, raw)
+
+
+def read_config(path: str, strict: bool = False,
+                environ: Optional[dict[str, str]] = None) -> Config:
+    """File -> template expansion -> YAML -> env overrides -> defaults
+    -> validate() (util/config/config.go:16-63)."""
+    environ = environ if environ is not None else dict(os.environ)
+    with open(path) as f:
+        raw = f.read()
+    data = yaml.safe_load(_expand(raw, environ)) or {}
+    # the overrides land before the defaults, so that flags like
+    # VENEUR_OMITEMPTYHOSTNAME take part in deriving them
+    cfg = _load(data, strict)
+    _env_overrides(cfg, environ)
+    cfg.apply_defaults()
+    cfg.validate()
+    return cfg
+
+
+def _expand(text: str, environ: dict[str, str]) -> str:
+    """The template pass: $NAME / ${NAME} from the environment; an unset
+    name stays as written."""
+    def repl(m):
+        name = m.group(1) or m.group(2)
+        return environ.get(name, m.group(0))
+    return re.sub(r"\$(?:\{(\w+)\}|(\w+))", repl, text)
+
+
+def redacted_fields(cfg_obj, secret_fields: set, redact: bool = True) -> dict:
+    """Dataclass config dump with the named secret fields redacted
+    (util/string_secret.go:13-36); lists of objects dump as their
+    strings."""
+    out = {}
+    for f in fields(type(cfg_obj)):
+        v = getattr(cfg_obj, f.name)
+        if redact and f.name in secret_fields and v:
+            v = "REDACTED"
+        if isinstance(v, list) and v and not isinstance(
+                v[0], (str, int, float)):
+            v = [str(x) for x in v]
+        out[f.name] = v
+    return out
+
+
+def redacted_dict(cfg: Config, redact: bool = True) -> dict:
+    """Server config dump; redact=False is the -print-secrets escape
+    hatch."""
+    return redacted_fields(cfg, {"sentry_dsn", "tls_key"}, redact)

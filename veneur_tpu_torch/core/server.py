@@ -1,13 +1,17 @@
 """The server: DogStatsD listeners, flush ticker, sink fan-out, gRPC
-forwarding and import.
+forwarding and import, and the lifecycle the command line drives.
 
 Counterpart of `veneur_tpu.core.server` (the reference `Server`,
 `server.go:106-174,462-868`) for what this package serves: UDP (with
 SO_REUSEPORT reader threads, `networking.go:54-107`) and TCP statsd
 listeners on Python reader threads, events and service checks
 (`server.go:942-993`), the interval flush ticker and a synchronous
-fan-out to the metric sinks.  A global tier (`grpc_address`) serves the
-gRPC import source (`sources/proxy.py`); a local tier
+fan-out to the metric sinks.  `start()` runs the ticker; `serve()`
+blocks until `stop_serving()`, `request_graceful_restart()` (SIGUSR2)
+or `shutdown()`; `graceful_restart_drain()` hands the UDP ports to a
+replacement that joined their SO_REUSEPORT groups without losing a
+datagram (`server.go:1365-1413`).  A global tier (`grpc_address`)
+serves the gRPC import source (`sources/proxy.py`); a local tier
 (`forward_address`) hands each interval's forwardable metrics to its
 forwarder, the gRPC `ForwardClient` unless the caller passes a
 callable, on a pool of at most FORWARD_MAX_IN_FLIGHT concurrent
@@ -27,6 +31,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import logging
+import select
 import socket
 import threading
 import time
@@ -56,6 +61,10 @@ def parse_listen_addr(addr: str) -> tuple[str, str, int]:
 
 class Server:
     STREAM_IDLE_TIMEOUT_S = 600.0
+    # a UDP reader wakes this often to see whether it should stop, and
+    # takes at most this many queued datagrams under its lock at once
+    READER_POLL_MS = 200
+    READER_BATCH = 64
     # concurrent forwards; a flush that finds every slot taken drops its
     # interval's batch and counts it in forward_dropped
     FORWARD_MAX_IN_FLIGHT = 4
@@ -144,9 +153,21 @@ class Server:
         self.flush_count = 0
         self.last_flush = None      # FlushResult of the last flush
         self._flush_serial = threading.Lock()
+        # _shutdown stops the ticker, serve() and the TCP accept loop;
+        # the readers stop on _readers_stop, which only shutdown() sets:
+        # after SIGUSR2 they go on reading the queued tail
         self._shutdown = threading.Event()
+        self._readers_stop = threading.Event()
+        self._graceful_restart = False      # set by SIGUSR2
+        self._intake_stopped = False
+        self._closed = False
+        self._close_lock = threading.Lock()
         self._listeners: list[socket.socket] = []
         self._threads: list[threading.Thread] = []
+        # the UDP and stream readers, joined before the final flush, and
+        # the UDP readers' locks, which flush() takes in turn
+        self._reader_threads: list[threading.Thread] = []
+        self._reader_locks: list[threading.Lock] = []
         self._stream_conns: set = set()
         self._conns_lock = threading.Lock()
         self.statsd_addrs: list[tuple[str, tuple]] = []
@@ -154,6 +175,17 @@ class Server:
     @property
     def is_local(self) -> bool:
         return self.config.is_local
+
+    def resolved_ports(self) -> dict:
+        """The bound addresses after start(), for a supervisor when the
+        listeners bound port 0 (the CLI writes this to `port_file`)."""
+        return {
+            "statsd": [[scheme, list(addr)]
+                       for scheme, addr in self.statsd_addrs],
+            "grpc": (self.grpc_import.port
+                     if self.grpc_import is not None else 0),
+            "hostname": self.config.hostname,
+        }
 
     # -- ingestion handlers (server.go:942-1011) -----------------------------
 
@@ -223,11 +255,12 @@ class Server:
         self._count_proto("dogstatsd-grpc", 1)
         self.process_packet_buffer(buf)
 
-    def _spawn(self, target, name: str, *args) -> None:
+    def _spawn(self, target, name: str, *args) -> threading.Thread:
         t = threading.Thread(target=target, args=args, daemon=True,
                              name=name)
         t.start()
         self._threads.append(t)
+        return t
 
     def _start_statsd(self, addr: str) -> None:
         scheme, host, port = parse_listen_addr(addr)
@@ -245,7 +278,10 @@ class Server:
                     bound = sock.getsockname()
                     port = bound[1]          # resolve port 0
                 self._listeners.append(sock)
-                self._spawn(self._read_udp, f"statsd-udp-{i}", sock)
+                lock = threading.Lock()
+                self._reader_locks.append(lock)
+                self._reader_threads.append(self._spawn(
+                    self._read_udp, f"statsd-udp-{i}", sock, lock))
             self.statsd_addrs.append(("udp", bound))
         elif scheme == "tcp":
             sock = socket.socket(family, socket.SOCK_STREAM)
@@ -260,17 +296,30 @@ class Server:
                 f"statsd listener scheme {scheme!r} is not supported "
                 "(udp and tcp are)")
 
-    def _read_udp(self, sock: socket.socket) -> None:
+    def _read_udp(self, sock: socket.socket, lock: threading.Lock) -> None:
+        """Read one UDP socket until _readers_stop.  A datagram is taken
+        off the socket and processed under `lock`, which flush() takes
+        before its cut: whatever a reader has received before a flush
+        began is in that flush's interval."""
         # +1 so an oversized datagram trips the too-long guard instead of
         # truncating into a parseable prefix (server.go:734)
         bufsize = self.config.metric_max_length + 1
-        while not self._shutdown.is_set():
-            try:
-                data = sock.recv(bufsize)
-            except OSError:
-                return
-            if data:
-                self.process_packet_buffer(data)
+        poller = select.poll()
+        poller.register(sock, select.POLLIN)
+        while not self._readers_stop.is_set():
+            if not poller.poll(self.READER_POLL_MS):
+                continue
+            with lock:
+                for _ in range(self.READER_BATCH):
+                    try:
+                        data = sock.recv(bufsize, socket.MSG_DONTWAIT)
+                    except BlockingIOError:
+                        break
+                    except OSError:
+                        return
+                    if not data:    # an empty datagram, or shut down
+                        break
+                    self.process_packet_buffer(data)
 
     def _accept_tcp(self, sock: socket.socket) -> None:
         while not self._shutdown.is_set():
@@ -278,7 +327,8 @@ class Server:
                 conn, _ = sock.accept()
             except OSError:
                 return
-            self._spawn(self._read_stream, "statsd-tcp-conn", conn)
+            self._reader_threads.append(
+                self._spawn(self._read_stream, "statsd-tcp-conn", conn))
 
     def _read_stream(self, conn: socket.socket) -> None:
         max_line = max(65536, self.config.metric_max_length)
@@ -287,7 +337,7 @@ class Server:
         try:
             conn.settimeout(self.STREAM_IDLE_TIMEOUT_S)
             buf = b""
-            while not self._shutdown.is_set():
+            while not self._readers_stop.is_set():
                 data = conn.recv(65536)
                 if not data:
                     break
@@ -313,6 +363,9 @@ class Server:
         the forward pool (wait_forwards waits for them).  Serialized
         across callers.  Returns the FlushResult."""
         with self._flush_serial:
+            for lock in self._reader_locks:
+                with lock:      # the datagram a reader holds goes first
+                    pass
             res = self.aggregator.flush(is_local=self.is_local)
             self.flush_count += 1
             with self._events_lock:
@@ -372,41 +425,137 @@ class Server:
         return True
 
     def _ticker(self) -> None:
-        while not self._shutdown.wait(self.config.interval):
+        """One flush an interval (server.go:830-867), on a schedule that
+        the flushes' own time does not shift; with
+        synchronize_with_interval the first waits for the next
+        wall-clock multiple of the interval."""
+        interval = self.config.interval
+        if self.config.synchronize_with_interval:
+            if self._shutdown.wait(interval - time.time() % interval):
+                return
+        next_tick = time.time() + interval
+        while not self._shutdown.wait(max(0.0, next_tick - time.time())):
+            next_tick += interval
             try:
                 self.flush()
             except Exception:
                 logger.exception("flush failed")
 
-    def shutdown(self) -> None:
-        """server.go:1417-1435: final flush if configured, a bounded wait
-        for the forwards in flight, then stop the readers, the ticker
-        and the import source, close the forward client and every
-        socket."""
-        if self.config.flush_on_shutdown:
-            try:
-                self.flush()
-            except Exception:
-                logger.exception("final flush failed")
+    # -- lifecycle -----------------------------------------------------------
+
+    def serve(self) -> None:
+        """Block until stop_serving(), request_graceful_restart() or
+        shutdown().  The flushes run on the ticker that start() spawned,
+        so start() alone and start() + serve() both flush once an
+        interval."""
+        while not self._shutdown.wait(1.0):
+            pass
+
+    def stop_serving(self) -> None:
+        """Unblock serve() without tearing down (signal-handler safe: it
+        takes no lock, so it may run while a flush is mid-flight)."""
         self._shutdown.set()
-        self.wait_forwards(max(2.0, self.config.interval))
-        self._forward_pool.shutdown(wait=False)
-        if self.grpc_import is not None:
-            self.grpc_import.stop()
-        if isinstance(self.forwarder, ForwardClient):
-            self.forwarder.close()
+
+    def request_graceful_restart(self) -> None:
+        """The SIGUSR2 entry, signal-handler safe: unblock serve() and
+        flag it for graceful_restart_drain()."""
+        self._graceful_restart = True
+        self._shutdown.set()
+
+    def graceful_restart_drain(self, grace_s: float = 0.5) -> None:
+        """Zero-drop restart handoff (server.go:1365-1413 SIGUSR2,
+        re-imagined on SO_REUSEPORT).  The replacement has bound the
+        same UDP addresses, so it is in their reuseport groups; this
+        process then
+
+          1. connect()s each UDP socket to a silent loopback port
+             (_stop_intake), which steers every new datagram to the
+             replacement's sockets while the queued tail stays
+             readable;
+          2. keeps its readers running for `grace_s`;
+          3. shuts down, which takes what is still queued into the
+             final flush (flush_on_shutdown)."""
+        self._stop_intake()
+        time.sleep(grace_s)
+        self.shutdown()
+
+    def _stop_intake(self) -> None:
+        """connect() every UDP listener to a port of the loopback that
+        sends nothing (9, discard, and up): the kernel then queues no
+        new datagram on it (they go to the other sockets of its
+        reuseport group, if any), and what is queued stays readable.
+        Each socket of a group takes its own port, since some network
+        stacks refuse two sockets the same four-tuple."""
+        if self._intake_stopped:
+            return
+        self._intake_stopped = True
+        udp = [s for s in self._listeners if s.type == socket.SOCK_DGRAM]
+        for i, sock in enumerate(udp):
+            host = "127.0.0.1" if sock.family == socket.AF_INET else "::1"
+            try:
+                sock.connect((host, 9 + i))
+            except OSError:
+                logger.exception("connect() of a UDP listener failed")
+
+    def _drain_udp(self) -> None:
+        """Process every datagram still queued on the UDP listeners;
+        after _stop_intake, so the queues only shrink."""
+        bufsize = self.config.metric_max_length + 1
         for sock in self._listeners:
-            try:
-                sock.shutdown(socket.SHUT_RDWR)
-            except OSError:
-                pass
-            sock.close()
-        with self._conns_lock:
-            conns = list(self._stream_conns)
-        for conn in conns:
-            try:
-                conn.shutdown(socket.SHUT_RDWR)
-            except OSError:
-                pass
-        for t in self._threads:
-            t.join(timeout=2.0)
+            if sock.type != socket.SOCK_DGRAM:
+                continue
+            while True:
+                try:
+                    data = sock.recv(bufsize, socket.MSG_DONTWAIT)
+                except OSError:     # BlockingIOError: the queue is empty
+                    break
+                if data:
+                    self.process_packet_buffer(data)
+
+    def shutdown(self) -> None:
+        """server.go:1417-1435: stop the ticker; stop the UDP intake
+        (_stop_intake), the readers (each finishes what it holds) and
+        process what is still queued, so the final flush, if
+        configured, holds every datagram that reached a listener before
+        the shutdown; a bounded wait for the forwards in flight; then
+        stop the import source, close the forward client and every
+        socket.  Idempotent: a second call (the CLI's, after POST
+        /quitquitquit) waits for the first and returns."""
+        with self._close_lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._shutdown.set()
+            self._stop_intake()
+            self._readers_stop.set()
+            for sock in self._listeners:
+                if sock.type == socket.SOCK_STREAM:
+                    try:
+                        sock.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
+            with self._conns_lock:
+                conns = list(self._stream_conns)
+            for conn in conns:
+                try:
+                    conn.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+            for t in self._reader_threads:
+                t.join(timeout=2.0)
+            self._drain_udp()
+            if self.config.flush_on_shutdown:
+                try:
+                    self.flush()
+                except Exception:
+                    logger.exception("final flush failed")
+            self.wait_forwards(max(2.0, self.config.interval))
+            self._forward_pool.shutdown(wait=False)
+            if self.grpc_import is not None:
+                self.grpc_import.stop()
+            if isinstance(self.forwarder, ForwardClient):
+                self.forwarder.close()
+            for sock in self._listeners:
+                sock.close()
+            for t in self._threads:
+                t.join(timeout=2.0)

@@ -1,23 +1,33 @@
-"""Operator HTTP API: health, version and the live query plane.
+"""Operator HTTP API: health, version, the live query plane and the
+gated operator routes.
 
 Counterpart of `veneur_tpu.http_api` (`http.go:15-67`) for what this
 package serves:
 
-  /healthcheck   "ok"
-  /version       the package version
-  /builddate     the build date
-  /query         windowed quantiles served between flushes
-                 (?name=&window_s=|slots=&q=0.5,0.99&tags=
-                 [&type=histogram|timer][&group_by=...&top=&by=]
-                 [&since=&step=&until=]): the server's QueryEngine
-                 parses, fuses and evaluates, and returns the status
-                 with the JSON body (404 while query_window_slots is 0)
+  GET  /healthcheck   "ok"
+  GET  /version       the build's version (util/build.py)
+  GET  /builddate     its build date
+  GET  /query         windowed quantiles served between flushes
+                      (?name=&window_s=|slots=&q=0.5,0.99&tags=
+                      [&type=histogram|timer][&group_by=...&top=&by=]
+                      [&since=&step=&until=]): the server's QueryEngine
+                      parses, fuses and evaluates, and returns the status
+                      with the JSON body (404 while query_window_slots
+                      is 0)
+  GET  /config/json   the config, secrets redacted
+  GET  /config/yaml   (both with http_config_endpoint,
+                      util/config/config.go:65-96)
+  POST /quitquitquit  shutdown() on a thread (with http_quit)
+  POST /flush         one flush now, answering {"flush_count": n} (with
+                      http_flush_endpoint; an unauthenticated flush
+                      trigger is a lever against production, hence the
+                      gate)
 
-Every other path answers 404, POST included: the JAX package's
-/config/* and /debug/* endpoints and its /quitquitquit, /flush and
-/checkpoint hooks are not ported yet.  The caller builds and starts
-`HttpApi` (the JAX package's CLI and testbed do the same; `Server`
-starts no HTTP listener).
+Every other path answers 404: a gated route while its option is off,
+and the JAX package's /debug/* (ROADMAP A16) and POST /checkpoint (A11),
+which are not ported yet.  The caller builds and starts `HttpApi`
+(`cli/veneur.py` does on `http_address`; `Server` starts no HTTP
+listener).
 """
 
 from __future__ import annotations
@@ -28,11 +38,11 @@ import threading
 import urllib.parse
 from typing import Optional
 
+import yaml
+
+from veneur_tpu_torch import config as config_mod
 from veneur_tpu_torch.util import netaddr
-
-VERSION = "veneur_tpu_torch 0.1.0"
-BUILD_DATE = "dev"
-
+from veneur_tpu_torch.util.build import BUILD_DATE, VERSION
 
 def reply(handler, code: int, body: bytes,
           ctype: str = "text/plain") -> None:
@@ -43,13 +53,41 @@ def reply(handler, code: int, body: bytes,
     handler.wfile.write(body)
 
 
+def config_json_body(cfg_dict: dict) -> bytes:
+    """util/config/config.go:65-77: indented JSON."""
+    return json.dumps(cfg_dict, default=str, indent=2).encode()
+
+
+def config_yaml_body(cfg_dict: dict) -> bytes:
+    """util/config/config.go:78-96: YAML through a JSON round trip, so
+    values that are not plain data dump as in the JSON body."""
+    return yaml.safe_dump(
+        json.loads(json.dumps(cfg_dict, default=str))).encode()
+
+
 def make_handler(server) -> type:
+    cfg = server.config
+
     class Handler(http.server.BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):
             pass
 
         def do_POST(self):
-            reply(self, 404, b"not found\n")
+            if self.path == "/quitquitquit" and cfg.http_quit:
+                reply(self, 200, b"terminating\n")
+                threading.Thread(target=server.shutdown, daemon=True,
+                                 name="quitquitquit").start()
+            elif self.path == "/flush" and cfg.http_flush_endpoint:
+                try:
+                    server.flush()
+                except Exception as e:
+                    reply(self, 500, f"flush failed: {e}\n".encode())
+                    return
+                reply(self, 200, json.dumps(
+                    {"flush_count": server.flush_count}).encode(),
+                    "application/json")
+            else:
+                reply(self, 404, b"not found\n")
 
         def do_GET(self):
             if self.path == "/healthcheck":
@@ -58,6 +96,14 @@ def make_handler(server) -> type:
                 reply(self, 200, VERSION.encode())
             elif self.path == "/builddate":
                 reply(self, 200, BUILD_DATE.encode())
+            elif self.path == "/config/json" and cfg.http_config_endpoint:
+                reply(self, 200,
+                      config_json_body(config_mod.redacted_dict(cfg)),
+                      "application/json")
+            elif self.path == "/config/yaml" and cfg.http_config_endpoint:
+                reply(self, 200,
+                      config_yaml_body(config_mod.redacted_dict(cfg)),
+                      "application/x-yaml")
             elif self.path.startswith("/query"):
                 q = urllib.parse.parse_qs(
                     urllib.parse.urlparse(self.path).query)
