@@ -16,11 +16,16 @@ local to a global over gRPC), of the compactor tier (16,384 ladders), the
 group-by read over 102,400 + 102,400 series in 4,096 cube groups, the
 meshed 100k-key global flush (on a one-card mesh, and on 2 x 2 and
 2 x 3 meshes over the same card) and the moments global flush on a
-2 x 2 one-card mesh beside the unmeshed one, and times them; then the
+2 x 2 one-card mesh beside the unmeshed one, and times them; then one
+interval of the global 100k x 64 shape over loopback UDP through the
+native ingest engine's C++ readers (`veneur_tpu_torch/ingest/`), its
+dense build through the native fill beside the numpy builder; then the
 command line (`veneur_tpu_torch/cli/veneur.py`): in this process, two
-UDP intervals cut by POST /flush and by SIGTERM, and as two processes
-that hand a UDP port over by SIGUSR2; then the three profiling entry
-points (`veneur_tpu_torch/scripts/`) with their kernels H1-H3.
+UDP intervals through the native readers cut by POST /flush and by
+SIGTERM, the first again through the Python readers
+(`native_ingest: false`), and as two processes that hand a UDP port
+over by SIGUSR2; then the three profiling entry points
+(`veneur_tpu_torch/scripts/`) with their kernels H1-H3.
 Every phase that fails raises, and the script exits non-zero.  The last
 line of standard output is
 
@@ -145,6 +150,10 @@ BF16_REL = 2.0 ** -8
 HOST_SLACK_CYCLES = 1_000_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+
+# the gRPC cell's decode and import, summed over its RPCs, when the
+# global parsed every record in Python (call 4 of PR 18, PERF.md)
+PR18_IMPORT_MS = 74579.0
 
 CARD = ""                        # "name, power.limit" from nvidia-smi
 DEVICE = "cuda"
@@ -649,16 +658,38 @@ def phase_environment():
 
 
 def phase_build():
+    """The CUDA kernels (one nvcc each) and, beside them, the native
+    ingest engine (g++ after its io_uring header probe)."""
+    from veneur_tpu_torch import ingest
+    from veneur_tpu_torch.ingest import _build as ingest_build
     from veneur_tpu_torch.ops import _build
     t0 = time.perf_counter()
+    engine: dict = {}
+
+    def build_engine():
+        try:
+            engine.update(ingest_build.build())
+        except BaseException as e:      # re-raised below
+            engine["error"] = e
+
+    builder = threading.Thread(target=build_engine, name="g++")
+    builder.start()
     libs = _build.build()
     took = time.perf_counter() - t0
+    builder.join()
+    if "error" in engine:
+        raise engine["error"]
+    ingest.load_library()
     for stem, rec in libs.items():
         log(f"built {stem}: {rec['seconds']:.2f}s -> {rec['path']}")
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  ptxas: {line.strip()}")
     log(f"kernel build: {took:.2f}s")
+    card_log(f"ingest engine build (g++): {engine['seconds']:.2f}s, io_uring "
+             f"header probe {engine['probe_seconds']:.2f}s -> "
+             f"VN_UAPI_HAS_PBUF_RING={int(engine['probe'])}; "
+             f"{engine['path']}")
 
 
 def _float_b1_agrees(args, got, ref, diff) -> bool:
@@ -1046,22 +1077,44 @@ def phase_b6(us=(1, 100, 4096, 16384), geometries=B6_GEOMETRIES,
     return err
 
 
+def _lines_in(srv) -> int:
+    """The lines a server has taken in: with the native engine the
+    values its readers have parsed and published, which a flush's cut
+    drains; with the Python readers the aggregator's count (which a
+    flush resets)."""
+    if srv.native is None:
+        return srv.aggregator.processed
+    return sum(v for _, _, v in srv.native.engine.thread_counts())
+
+
+def _readers(srv) -> str:
+    """The receive backend each native reader resolved, and the SIMD
+    mode, once every reader has started."""
+    deadline = time.monotonic() + 10
+    while "none" in srv.native.stage_stats()["readers"].values():
+        require(time.monotonic() < deadline, "a native reader never started")
+        time.sleep(0.01)
+    st = srv.native.stage_stats()
+    return (f"readers {sorted(st['readers'].values())}, SIMD "
+            f"{st['simd']}")
+
+
 def _udp_send(addr, lines, srv, expect_total, counts=None):
     """Send DogStatsD lines in datagrams of <= 1400 bytes, waiting for
-    the server to catch up every few datagrams so none is dropped.
-    `counts[i]` is the number of metrics line i carries (a multi-value
-    line `name:v1:v2|h` carries one a value; default 1)."""
+    the server to catch up (`_lines_in`) every few datagrams so none is
+    dropped.  `counts[i]` is the number of metrics line i carries (a
+    multi-value line `name:v1:v2|h` carries one a value; default 1)."""
     sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     buf, sent = [], 0
     n_of = (lambda i: 1) if counts is None else counts.__getitem__
-    start = srv.aggregator.processed
+    start = _lines_in(srv)
 
     def wait_for(n, timeout=60.0):
         deadline = time.time() + timeout
-        while srv.aggregator.processed - start < n:
+        while _lines_in(srv) - start < n:
             if time.time() > deadline:
                 raise TimeoutError(
-                    f"server processed {srv.aggregator.processed - start}"
+                    f"server processed {_lines_in(srv) - start}"
                     f" of {n} lines")
             time.sleep(0.002)
 
@@ -3643,8 +3696,10 @@ def grpc_cell(seed=12, n_keys=100_000, per=64, budget_s=60.0):
             f"{med['forward_ms']:.1f} ms ({med['bytes_sent'] / 1e6:.1f} MB "
             f"in {med['chunks']:.0f} V1 chunks, "
             f"{med['bytes_sent'] / med['forward_ms'] / 1e3:.1f} MB/s; "
-            f"encode {med['encode_ms']:.1f} ms, decode+import "
-            f"{med['import_ms']:.1f} ms summed over the chunks' RPCs), "
+            f"encode {med['encode_ms']:.1f} ms, decode+import through "
+            f"the native wire scan {med['import_ms']:.1f} ms summed over "
+            f"the chunks' RPCs, against {PR18_IMPORT_MS} ms through the "
+            f"Python parse in call 4 of PR 18), "
             f"global flush {med['global_flush_ms']:.1f} ms; warm-up "
             f"{warm['local_flush_ms']:.1f} / {warm['forward_ms']:.1f} / "
             f"{warm['global_flush_ms']:.1f} ms; counts exact, the global's "
@@ -4329,8 +4384,9 @@ def _cli_interval(rng, n_hist, per, n_sets, members, n_counters, n_gauges,
 
 def _paced_send(dgrams, addr, processed, check_every: int = 8) -> float:
     """Send `dgrams` to `addr` over CLI_FLOWS sockets in turn, holding
-    the lines sent but not yet `processed()` (the server's count for
-    the interval) under CLI_WINDOW_LINES and, every `check_every`
+    the lines sent but not yet `processed()` (a count of the server's,
+    taken from its value at the call) under CLI_WINDOW_LINES and, every
+    `check_every`
     datagrams, the listener's queued bytes under CLI_QUEUE_HIGH; then
     wait until the server has processed every line and the queues are
     empty.  Returns the seconds from the first datagram to then;
@@ -4339,12 +4395,16 @@ def _paced_send(dgrams, addr, processed, check_every: int = 8) -> float:
     drops0 = udp_queues(port)[1]
     socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
              for _ in range(CLI_FLOWS)]
+    base = processed()
+
+    def done():
+        return processed() - base
 
     def wait_processed(n, timeout=300.0):
         deadline = time.monotonic() + timeout
-        while processed() < n:
+        while done() < n:
             if time.monotonic() > deadline:
-                raise TimeoutError(f"the server processed {processed()} "
+                raise TimeoutError(f"the server processed {done()} "
                                    f"of {n} lines")
             time.sleep(0.002)
 
@@ -4363,8 +4423,7 @@ def _paced_send(dgrams, addr, processed, check_every: int = 8) -> float:
     finally:
         for s in socks:
             s.close()
-    require(processed() == sent, f"{processed()} lines processed of "
-            f"{sent} sent")
+    require(done() == sent, f"{done()} lines processed of {sent} sent")
     drops = udp_queues(port)[1] - drops0
     require(drops == 0, f"the kernel dropped {drops} datagrams on {port}")
     return secs
@@ -4432,8 +4491,8 @@ def _cli_feeder(st: dict, ports_path: str, iv1: dict, iv2: dict,
     """phase_cli's feeder thread: waits for the port file, sends the
     first interval, POSTs /flush, reads /config/json and one /query,
     sends the second interval and signals SIGTERM to this process.
-    `servers` holds the Server the CLI started, whose line count paces
-    the sends.  Records what it saw in `st`; an exception lands in
+    `servers` holds the Server the CLI started, whose native readers'
+    count of parsed lines paces the sends.  Records what it saw in `st`; an exception lands in
     st["error"]."""
     signalled = False
     try:
@@ -4441,18 +4500,20 @@ def _cli_feeder(st: dict, ports_path: str, iv1: dict, iv2: dict,
         st["boot_s"] = time.perf_counter() - st["t0"]
         ports = json.load(open(ports_path))
         require(ports["pid"] == os.getpid() and len(servers) == 1, ports)
-        agg = servers[0].aggregator
+        srv = servers[0]
+        require(srv.native is not None, "the CLI's UDP is not native")
+        st["readers"] = _readers(srv)
         addr = tuple(ports["statsd"][0][1])
         http_port = ports["http"][1]
         st["ingest_s"] = _paced_send(iv1["dgrams"], addr,
-                                     lambda: agg.processed)
+                                     lambda: _lines_in(srv))
         t = time.perf_counter()
         st["flush"] = _http(http_port, "/flush", "POST")
         st["flush_ms"] = (time.perf_counter() - t) * 1e3
         st["config_json"] = _http(http_port, "/config/json")
         st["query"] = _http(http_port, "/query?name=cli.h1&q=0.5,0.99")
         st["ingest2_s"] = _paced_send(iv2["dgrams"], addr,
-                                      lambda: agg.processed)
+                                      lambda: _lines_in(srv))
     except BaseException as e:      # re-raised by phase_cli
         st["error"] = e
     finally:
@@ -4469,17 +4530,21 @@ def _query_fields(body: dict) -> dict:
 
 def phase_cli_in_process(d: str, seed=13) -> dict:
     """`cli.veneur.main` in this process's main thread, as the command
-    line runs it (signals included), on a YAML with two UDP readers,
-    the HTTP API with /config and POST /flush, a 3600 s interval, the
-    query ring and a jsonl sink.  A feeder thread sends two intervals
-    over UDP (`_paced_send`: paced by the server's line count and the
-    listener's queues, and each ended when the server has processed
+    line runs it (signals included), on a YAML with two UDP sockets
+    read by the native engine's C++ readers (the default config), the
+    HTTP API with /config and POST /flush, a 3600 s interval, the query
+    ring and a jsonl sink.  A feeder thread sends two intervals over
+    UDP (`_paced_send`: paced by the lines the readers have parsed and
+    the listener's queues, and each ended when the readers have parsed
     every line and the queues are empty), and cuts the first with POST
-    /flush and the second with SIGTERM (the final flush).  The first holds sampled histogram keys, so its flush runs
-    B1; the second has unit weights only, so B3.  Each frame must equal
-    a port Server on the CPU fed the same datagrams, bitwise, with its
-    counter totals equal to what was sent; /config/json must be the
-    loaded config's redacted dump, /query the CPU server's answer."""
+    /flush and the second with SIGTERM (the final flush).  The first
+    holds sampled histogram keys, so its flush runs B1; the second has
+    unit weights only, so B3.  Each frame must equal a port Server on
+    the CPU fed the same datagrams, bitwise, with its counter totals
+    equal to what was sent; /config/json must be the loaded config's
+    redacted dump, /query the CPU server's answer.  Then the first
+    interval goes through the same config with `native_ingest: false`
+    (two Python readers), whose flush must equal the same reference."""
     import dataclasses
 
     from veneur_tpu_torch import config as config_mod
@@ -4548,6 +4613,7 @@ def phase_cli_in_process(d: str, seed=13) -> dict:
                 for m in sink.queue.get(timeout=60)}
         _require_frame(frames[i], want, iv["totals"], f"CLI frame {i + 1}")
         if i == 0:
+            want1 = want
             code, body = st["query"]
             wcode, wbody = ref.query.serve({"name": ["cli.h1"],
                                             "q": ["0.5,0.99"]})
@@ -4567,17 +4633,203 @@ def phase_cli_in_process(d: str, seed=13) -> dict:
     rate = iv1["lines"] / st["ingest_s"]
     card_log(f"CLI in process: port file {st['boot_s']:.2f} s after "
              f"main(); {iv1['lines']} lines in {len(iv1['dgrams'])} "
-             f"datagrams through 2 UDP readers in {st['ingest_s']:.3f} s "
-             f"({rate:.0f} lines/s, at most {CLI_WINDOW_LINES} lines in "
-             f"flight, none lost); POST /flush {st['flush_ms']:.1f} ms; "
-             f"both frames (B1 {b1}, then B3 {b3} at SIGTERM) bitwise "
-             f"the CPU server's, counter totals as sent; /config/json "
-             f"and /query as expected")
+             f"datagrams through 2 native UDP readers ({st['readers']}) "
+             f"in {st['ingest_s']:.3f} s ({rate:.0f} lines/s, at most "
+             f"{CLI_WINDOW_LINES} lines in flight, none lost); POST "
+             f"/flush {st['flush_ms']:.1f} ms; both frames (B1 {b1}, "
+             f"then B3 {b3} at SIGTERM) bitwise the CPU server's, counter "
+             f"totals as sent; /config/json and /query as expected")
+
+    # the first interval again, through the Python readers
+    sink = ChannelMetricSink()
+    py = Server(dataclasses.replace(
+        cfg, native_ingest=False, metric_sinks=[],
+        statsd_listen_addresses=["udp://127.0.0.1:0"]),
+        extra_metric_sinks=[sink], device=DEVICE)
+    py.start()
+    try:
+        require(py.native is None, "native_ingest: false read natively")
+        py_s = _paced_send(iv1["dgrams"], py.statsd_addrs[0][1],
+                           lambda: py.aggregator.processed)
+        py.flush()
+        got = {(m.name, tuple(m.tags), m.type): m.value
+               for m in sink.queue.get(timeout=60)}
+    finally:
+        py.shutdown()
+    _require_frame(got, want1, iv1["totals"], "Python readers' flush")
+    py_rate = iv1["lines"] / py_s
+    card_log(f"CLI interval 1 through 2 UDP readers: native {rate:.0f} "
+             f"lines/s, Python (native_ingest: false) {py_rate:.0f} "
+             f"lines/s ({py_s:.3f} s); both flushes bitwise the CPU "
+             f"server's")
     return {"boot_s": st["boot_s"], "ingest_lines": iv1["lines"],
             "ingest_datagrams": len(iv1["dgrams"]),
+            "readers": st["readers"],
             "ingest_s": st["ingest_s"], "ingest_lines_per_s": rate,
+            "python_ingest_s": py_s, "python_lines_per_s": py_rate,
             "ingest2_lines_per_s": iv2["lines"] / st["ingest2_s"],
             "flush_ms": st["flush_ms"], "launches": launches}
+
+
+NATIVE_READERS = 4
+
+
+def _raw(x):
+    """The bytes of a dense-build output (a numpy array, a CPU bfloat16
+    tensor or None)."""
+    import torch
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.contiguous().view(torch.int16).numpy().tobytes()
+    return np.ascontiguousarray(x).tobytes()
+
+
+def phase_native_ingest(seed=14, n_keys=100_000, per=64) -> dict:
+    """One interval of the global 100k x 64 shape over loopback UDP:
+    100,000 histogram keys x 64 integer samples, 6.4M lines in
+    datagrams of at most 4,096 bytes, into a port Server on the card
+    through NATIVE_READERS C++ readers.  The sender is the engine's
+    `blast_udp` (sendmmsg), in bursts no larger than one socket's
+    receive buffer, each sent once the readers have parsed every line
+    before it.  Checks every line counted and none malformed, the
+    flush (B3) bitwise a server whose arena took the same samples in
+    bulk (counts, sums, min, max and every percentile), and the dense
+    build through the native fill with no fallback, bitwise the numpy
+    builder on the same staged arrays, whose time it also takes."""
+    import dataclasses
+
+    from veneur_tpu_torch import config as config_mod
+    from veneur_tpu_torch import ingest
+    from veneur_tpu_torch.core import arena as arena_mod
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.samplers import samplers as sm
+    from veneur_tpu_torch.samplers.metric_key import MetricKey, MetricScope
+    from veneur_tpu_torch.sinks.simple import ChannelMetricSink
+
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, 1000, (per, n_keys))
+    t0 = time.perf_counter()
+    dgrams = []
+    for j in range(per):        # a datagram spans ~250 keys
+        dgrams += _datagrams([b"fs.h%d:%d|h" % (k, v)
+                              for k, v in enumerate(vals[j].tolist())])
+    gen_s = time.perf_counter() - t0
+    n_lines = n_keys * per
+    cfg = config_mod.Config(
+        statsd_listen_addresses=["udp://127.0.0.1:0"],
+        num_readers=NATIVE_READERS, read_buffer_size_bytes=CLI_RCVBUF,
+        interval=3600.0, percentiles=PERCENTILES, aggregates=CLI_AGGS,
+        arena_initial_capacity=n_keys, hostname="fs")
+    sink = ChannelMetricSink()
+    srv = Server(cfg, extra_metric_sinks=[sink], device=DEVICE)
+    built: list = []
+    arena = srv.aggregator.digests
+    build = arena.build_dense
+
+    def capture(*args, **kw):
+        out = build(*args, **kw)
+        built.append((args, kw, out))
+        return out
+
+    arena.build_dense = capture
+    srv.start()
+    try:
+        readers = _readers(srv)
+        host, port = srv.statsd_addrs[0][1][:2]
+        rcvbuf = srv._listeners[0].getsockopt(socket.SOL_SOCKET,
+                                              socket.SO_RCVBUF)
+        # a datagram of <= 4,096 bytes takes at most 8 KiB of a socket's
+        # receive buffer
+        burst = max(1, rcvbuf // 8192)
+        drops0 = udp_queues(port)[1]
+        t0 = time.perf_counter()
+        sent = 0
+        for i in range(0, len(dgrams), burst):
+            chunk = dgrams[i:i + burst]
+            require(ingest.blast_udp(host, port, len(chunk), chunk)
+                    == len(chunk), "blast_udp sent short")
+            sent += sum(d.count(b"\n") + 1 for d in chunk)
+            deadline = time.monotonic() + 60
+            while _lines_in(srv) < sent:
+                require(time.monotonic() < deadline,
+                        f"the readers parsed {_lines_in(srv)} of {sent} "
+                        f"lines")
+                time.sleep(0.0001)
+        ingest_s = time.perf_counter() - t0
+        drops = udp_queues(port)[1] - drops0
+        t0 = time.perf_counter()
+        res = srv.flush()
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        seg = dict(srv.aggregator.last_flush_segments)
+        totals = srv.native.engine.totals()
+        got = sorted((m.name, m.value) for m in sink.queue.get(timeout=60))
+    finally:
+        srv.shutdown()
+    require(sent == n_lines and drops == 0, f"{sent} lines, {drops} drops")
+    require(totals == (n_lines, 0, len(dgrams), 0),
+            f"engine totals (lines, malformed, datagrams, too long) "
+            f"{totals}, sent {n_lines} lines in {len(dgrams)} datagrams")
+    require(res.processed == n_lines, f"flushed {res.processed} lines")
+    require(arena.dense_fill_native >= 1 and arena.dense_fill_fallbacks == 0,
+            f"native fills {arena.dense_fill_native}, fallbacks "
+            f"{arena.dense_fill_fallbacks}")
+
+    # the same samples staged in bulk into a server of the same config
+    ref_sink = ChannelMetricSink()
+    ref = Server(dataclasses.replace(cfg, statsd_listen_addresses=[]),
+                 extra_metric_sinks=[ref_sink], device=DEVICE)
+    digests = ref.aggregator.digests
+    rows = np.asarray([digests.row_for(
+        MetricKey(f"fs.h{k}", sm.TYPE_HISTOGRAM, ""), MetricScope.MIXED, [])
+        for k in range(n_keys)], np.int64)
+    with ref.aggregator.lock:
+        digests.sample_batch(np.tile(rows, per),
+                             vals.reshape(-1).astype(np.float64),
+                             np.ones(n_lines))
+        ref.aggregator.processed += n_lines
+    ref.flush()
+    want = sorted((m.name, m.value) for m in ref_sink.queue.get(timeout=60))
+    ref.shutdown()
+    require(got == want, "the UDP interval's flush differs from the bulk "
+            "one: " + str([(g, w) for g, w in zip(got, want) if g != w][:4]))
+
+    # the numpy builder on the same staged arrays (the fill's threshold
+    # raised past them), and the native fill again, each timed alone
+    (args, kw, native_out), = built
+    times = {}
+    for label, limit in (("numpy", 1 << 62), ("native",
+                                              arena_mod._NATIVE_FILL_MIN)):
+        saved = arena_mod._NATIVE_FILL_MIN
+        arena_mod._NATIVE_FILL_MIN = limit
+        try:
+            t0 = time.perf_counter()
+            out = build(*args, **kw)
+            times[label] = (time.perf_counter() - t0) * 1e3
+        finally:
+            arena_mod._NATIVE_FILL_MIN = saved
+        require([_raw(a) for a in out] == [_raw(b) for b in native_out],
+                f"the {label} build differs from the flush's")
+    rate = n_lines / ingest_s
+    out = {"lines": n_lines, "datagrams": len(dgrams), "readers": readers,
+           "burst_datagrams": burst, "rcvbuf": rcvbuf, "gen_s": gen_s,
+           "ingest_s": ingest_s, "lines_per_s": rate,
+           "flush_ms": flush_ms,
+           "build_ms": seg["build_s"] * 1e3,
+           "numpy_build_ms": times["numpy"],
+           "native_build_ms": times["native"], "segments": seg}
+    card_log(f"native ingest, global {n_keys} x {per}: {n_lines} lines in "
+             f"{len(dgrams)} datagrams (bursts of {burst}, SO_RCVBUF "
+             f"{rcvbuf}) through {NATIVE_READERS} native UDP readers "
+             f"({readers}) in {ingest_s:.3f} s ({rate:.0f} lines/s), every "
+             f"line counted, none malformed, no drops; flush build_s "
+             f"{seg['build_s'] * 1e3:.1f} ms through the native fill "
+             f"(0 fallbacks); the same staged arrays: numpy builder "
+             f"{times['numpy']:.1f} ms, native fill {times['native']:.1f} "
+             f"ms, bitwise; counts, sums, min, max and {len(got)} values "
+             f"bitwise the bulk-staged server's")
+    return out
+
 
 
 def _compute_apps() -> list[str]:
@@ -4773,6 +5025,17 @@ def phase_cli() -> dict:
     return out
 
 
+PHASE_S: dict = {}
+
+
+def _timed(fn, *args):
+    """fn(*args), its seconds recorded in PHASE_S under its name."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[fn.__name__] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4790,36 +5053,37 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    phase_environment()
-    phase_build()
-    err = phase_kernels()
-    err["compact_batch"] = phase_b6()
-    err["segment_sums"] = phase_b7()
-    err["weighted_eval_uniform"] = phase_b2()
-    err["register_moments"] = phase_b8()
-    err["quantile"] = phase_b9()
-    err.update(phase_harness_kernels())
+    _timed(phase_environment)
+    _timed(phase_build)
+    err = _timed(phase_kernels)
+    err["compact_batch"] = _timed(phase_b6)
+    err["segment_sums"] = _timed(phase_b7)
+    err["weighted_eval_uniform"] = _timed(phase_b2)
+    err["register_moments"] = _timed(phase_b8)
+    err["quantile"] = _timed(phase_b9)
+    err.update(_timed(phase_harness_kernels))
     # the flush path: counts from zero, read right after it
     for mod in _kernel_modules():
         mod.reset_launches()
-    phase_slice()
-    phase_slice_bf16()
-    phase_slice_compactor()
-    phase_slice_cubes()
-    phase_slice_mesh()
-    grpc_slice = phase_slice_grpc()
-    full = phase_full_size()
-    grpc = grpc_cell()
-    cube = cube_cell()
-    meshed, b8_b9 = mesh_cells()
-    meshed += moments_mesh_cell()
+    _timed(phase_slice)
+    _timed(phase_slice_bf16)
+    _timed(phase_slice_compactor)
+    _timed(phase_slice_cubes)
+    _timed(phase_slice_mesh)
+    grpc_slice = _timed(phase_slice_grpc)
+    full = _timed(phase_full_size)
+    grpc = _timed(grpc_cell)
+    cube = _timed(cube_cell)
+    meshed, b8_b9 = _timed(mesh_cells)
+    meshed += _timed(moments_mesh_cell)
+    native = _timed(phase_native_ingest)
     launches = _read_launches()
     card_log(f"flush path launches: {launches}")
     # the command line, counted on its own and added to the flush path's:
     # its flushes are the same path, driven the way users start it.  It
     # installs the crash hooks, so from here a thread that dies ends the
     # script with exit code 2
-    cli = phase_cli()
+    cli = _timed(phase_cli)
     card_log(f"command-line launches: {cli['launches']}")
     for k, n in cli["launches"].items():
         launches[k] += n
@@ -4827,7 +5091,7 @@ def main() -> int:
     # B1, B3, B4 and B5 hundreds of times, which are not flushes
     for mod in _kernel_modules():
         mod.reset_launches()
-    harness = phase_harness()
+    harness = _timed(phase_harness)
     harness_launches = _read_launches()
     card_log(f"profiling path launches: {harness_launches}")
     missing = [k for k, n in launches.items()
@@ -4836,7 +5100,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     launches.update({k: harness_launches[k] for k in HARNESS_KERNELS})
-    timed = kernel_times(err)
+    timed = _timed(kernel_times, err)
     kernels = [{"name": r["name"], "mode": r.get("mode"), "route": "cuda",
                 "source": KERNEL_SOURCE[r["name"]],
                 "replaces": REPLACES[r["name"]],
@@ -4863,8 +5127,11 @@ def main() -> int:
                    "flushes": full, "cube_cell": cube,
                    "grpc_slice": grpc_slice, "grpc_cell": grpc,
                    "meshed_flushes": meshed, "meshed_b8_b9": b8_b9,
-                   "cli": cli, "harness": harness}, f,
+                   "native_ingest": native, "cli": cli, "phase_s": PHASE_S,
+                   "harness": harness}, f,
                   indent=1)
+    log("phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_S.items()))
     log(f"total {time.perf_counter() - t_start:.1f}s; raw numbers in "
         f"chiprun_out/chip_smoke.json")
     print(json.dumps({"kernels": kernels}), flush=True)

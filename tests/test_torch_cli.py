@@ -6,16 +6,17 @@
     field type, `features`, `http`, sinks), strict and not; the sink
     specs compare by kind, name and config.  An unsupported option
     raises NotImplementedError from the file, from the environment and
-    from `Config(...)`; `native_ingest` passes only when false;
+    from `Config(...)`; `native_ingest` loads either way, as there;
   * the two example configs refuse as they are and, with the options
     they name removed, load to the JAX package's values;
   * `apply_defaults` as the JAX package's;
   * `cli/veneur.py`'s flags, exit codes and config dump (the JAX CLI's
-    dump but for its `native_ingest` key);
+    dump);
   * the lifecycle: one flush an interval from `start()` alone or with
     `serve()`, on wall-clock multiples with `synchronize_with_interval`,
     an idempotent `shutdown()`, the gated HTTP routes, the zero-drop
-    SIGUSR2 handoff with the Python readers;
+    SIGUSR2 handoff with the Python readers (with the native readers:
+    `test_torch_ingest.py`);
   * the jsonl, localfile and debug sinks' output equal to the JAX sinks';
   * one run of `python -m veneur_tpu_torch.cli.veneur -device cpu`: port
     file, UDP lines, POST /flush, jsonl rows equal to a JAX `Server` fed
@@ -132,11 +133,6 @@ def _read_both(tmp_path, text, strict, environ):
             jconfig.read_config(str(path), strict=strict, environ=environ))
 
 
-def _without_native_ingest(dump: str) -> str:
-    return "".join(line for line in dump.splitlines(keepends=True)
-                   if not line.startswith("native_ingest:"))
-
-
 # -- the loaders -------------------------------------------------------------
 
 @pytest.mark.parametrize("strict", [True, False])
@@ -218,27 +214,30 @@ def test_unsupported_options_refuse_from_file_env_and_code(
     jconfig.read_config(str(path), environ=env)
 
 
-@pytest.mark.parametrize("text,env,refused", [
+@pytest.mark.parametrize("text,env,native", [
     ("native_ingest: true", {}, True),
     ("interval: 10s", {"VENEUR_NATIVEINGEST": "true"}, True),
     ("interval: 10s", {"VENEUR_NATIVE_INGEST": "1"}, True),
     ("native_ingest: false", {}, False),
     ("interval: 10s", {"VENEUR_NATIVEINGEST": "false"}, False),
-    ("interval: 10s", {}, False)])
-def test_native_ingest_passes_only_when_false(tmp_path, text, env, refused):
+    ("interval: 10s", {}, True)])
+def test_native_ingest_passes_only_when_false(tmp_path, text, env, native):
+    """native_ingest (the native ingest engine, served since it was
+    ported) loads from the file and from either override as the JAX
+    package loads it; an option still outside the port refuses from
+    both (the cardinality guard)."""
     path = tmp_path / "cfg.yaml"
     path.write_text(text + "\n")
     for strict in (True, False):
-        if refused:
-            with pytest.raises(NotImplementedError,
-                               match="native_ingest.*A9"):
-                tconfig.read_config(str(path), strict=strict, environ=env)
-        else:
-            tcfg, jcfg = _read_both(tmp_path, text + "\n", strict, env)
-            _assert_same_fields(tcfg, jcfg)
-            assert not hasattr(tcfg, "native_ingest")
-    with pytest.raises(TypeError, match="native_ingest"):
-        tconfig.Config(native_ingest=False)
+        tcfg, jcfg = _read_both(tmp_path, text + "\n", strict, env)
+        _assert_same_fields(tcfg, jcfg)
+        assert tcfg.native_ingest is native
+        with pytest.raises(NotImplementedError,
+                           match="cardinality_key_budget"):
+            tconfig.read_config(
+                str(path), strict=strict,
+                environ={**env, "VENEUR_CARDINALITYKEYBUDGET": "10"})
+    assert tconfig.Config(native_ingest=False).native_ingest is False
 
 
 def _strip_until_it_loads(text: str, strict: bool) -> tuple[str, list]:
@@ -269,13 +268,13 @@ def _strip_until_it_loads(text: str, strict: bool) -> tuple[str, list]:
 
 @pytest.mark.parametrize("strict", [True, False])
 @pytest.mark.parametrize("name,expect", [
-    ("example.yaml", {"native_ingest", "ssf_listen_addresses",
+    ("example.yaml", {"grpc_listen_addresses", "ssf_listen_addresses",
                       "stats_address", "checkpoint_interval",
                       "flush_watchdog_missed_flushes", "tags_exclude",
                       "enable_metric_sink_routing", "span_sinks",
                       "sources", "metric_sink_routing"}),
-    ("example_host.yaml", {"native_ingest", "ssf_listen_addresses",
-                           "stats_address", "checkpoint_interval"})])
+    ("example_host.yaml", {"ssf_listen_addresses", "stats_address",
+                           "checkpoint_interval"})])
 def test_example_configs_refuse_then_match_jax_once_stripped(
         tmp_path, strict, name, expect):
     with open(os.path.join(REPO, name)) as f:
@@ -356,19 +355,19 @@ def test_cli_validate_dumps_what_the_jax_cli_dumps(tmp_path, capsys,
     got = capsys.readouterr().out
     assert got.endswith("config valid\n")
     assert "native_ingest: false\n" in want
-    assert got == _without_native_ingest(want)
+    assert got == want
 
 
 def test_cli_refuses_an_unported_option_and_a_missing_card(tmp_path,
                                                            capsys):
-    """example.yaml refuses (native_ingest: true first); without
+    """example.yaml refuses (grpc_listen_addresses first, since
+    native_ingest is served); without
     `-device` the boot wants a CUDA device and, lacking one, exits 1
     without writing its port file (in a subprocess: a boot installs
     the crash hooks)."""
     assert tcli.main(["-f", os.path.join(REPO, "example.yaml"),
                       "-validate-config"]) == 1
-    assert "native_ingest=True is not supported here" in \
-        capsys.readouterr().err
+    assert "option grpc_listen_addresses=" in capsys.readouterr().err
     assert tcli.build_parser().parse_args([]).device == "cuda"
     import torch
     if torch.cuda.is_available():
@@ -556,7 +555,7 @@ def test_gated_http_routes(on):
               http_config_endpoint=on, http_flush_endpoint=on,
               metric_sinks=[{"kind": "blackhole", "name": "bh"}])
     srv = Server(tconfig.Config(**kw), device="cpu")
-    jcfg = jconfig.Config(native_ingest=False, **kw)
+    jcfg = jconfig.Config(**kw)
     api = HttpApi(srv, "127.0.0.1:0")
     api.start()
     port = api.address[1]
@@ -570,10 +569,10 @@ def test_gated_http_routes(on):
                 want = body(jconfig.redacted_dict(jcfg)).decode()
                 if path == "/config/json":
                     want = json.loads(want)
-                    assert want.pop("native_ingest") is False
+                    assert want["native_ingest"] is True
                     assert json.loads(got) == want
                 else:
-                    assert got.decode() == _without_native_ingest(want)
+                    assert got.decode() == want
         srv.process_packet_buffer(b"g.hits:2|c")
         code, got = _http(port, "/flush", "POST")
         assert code == (200 if on else 404)
@@ -602,7 +601,8 @@ def test_graceful_restart_zero_drop_python_readers():
     final-flushes; every sent increment lands on exactly one of the
     two."""
     cfg = dict(interval=600.0, flush_on_shutdown=True,
-               read_buffer_size_bytes=8 << 20, num_readers=2)
+               read_buffer_size_bytes=8 << 20, num_readers=2,
+               native_ingest=False)
     sink_a, sink_b = tsimple.ChannelMetricSink(), tsimple.ChannelMetricSink()
     srv_a = Server(tconfig.Config(
         statsd_listen_addresses=["udp://127.0.0.1:0"], hostname="a", **cfg),

@@ -19,9 +19,8 @@ PyTorch version).  The rules, each with its reason:
   * arenas, aggregators and servers: ladder state, wire vectors, counts,
     sums, min and max bitwise; quantiles within READOFF_REL relative.
 
-Also here: the `Config` field repair (every JAX field but
-`native_ingest` exists in the port with the same default, served or
-refused), and the new entry points' refusal to run without CUDA.
+Also here: the `Config` field repair (every JAX field exists in the
+port with the same default, served or refused), and the new entry points' refusal to run without CUDA.
 """
 
 import dataclasses
@@ -809,16 +808,15 @@ def _other_value(value):
 
 
 def test_config_has_every_jax_field_served_or_refused():
-    """Every field of the JAX Config but native_ingest exists in the
-    port's with the same default; each is served or listed in
-    UNSUPPORTED, and an unsupported one raises NotImplementedError at
-    any value but its default."""
+    """Every field of the JAX Config exists in the port's with the same
+    default (native_ingest and its ingest_* options served); each is
+    served or listed in UNSUPPORTED, and an unsupported one raises
+    NotImplementedError at any value but its default."""
     port = {f.name: f for f in dataclasses.fields(tconfig.Config)}
     jax_fields = dataclasses.fields(jconfig.Config)
-    assert "native_ingest" not in port
+    assert "native_ingest" not in tconfig.UNSUPPORTED
+    assert "cardinality_key_budget" in tconfig.UNSUPPORTED
     for f in jax_fields:
-        if f.name == "native_ingest":
-            continue
         assert f.name in port, f.name
         assert _default(port[f.name]) == _default(f), f.name
     assert set(tconfig.UNSUPPORTED) <= set(port)

@@ -556,7 +556,7 @@ def _one_histogram():
     {"retention_tiers": [{"step": "1m", "slots": 60}]},
     {"cardinality_key_budget": 100},
     {"checkpoint_dir": "ckpt"}, {"spool_dir": "spool"},
-    {"egress_spool_dir": "egress"}, {"ingest_backend": "io_uring"},
+    {"egress_spool_dir": "egress"}, {"flush_resident_arenas": True},
     {"grpc_listen_addresses": ["127.0.0.1:0"]}])
 def test_config_refuses_options_outside_the_port(option):
     with pytest.raises(NotImplementedError):
@@ -564,9 +564,16 @@ def test_config_refuses_options_outside_the_port(option):
 
 
 def test_config_has_no_native_ingest_switch():
-    """The port has no native ingest engine, so asking for it fails."""
-    with pytest.raises(TypeError, match="native_ingest"):
-        tconfig.Config(native_ingest=True)
+    """The native ingest switch is served now, on by default as in the
+    JAX package, with its tuning options; an option still outside the
+    port (the cardinality guard) refuses."""
+    assert tconfig.Config().native_ingest is True
+    assert jconfig.Config().native_ingest is True
+    cfg = tconfig.Config(native_ingest=False, ingest_backend="recvmmsg",
+                         ingest_reader_shards=2, intern_gc_threshold=10)
+    assert (cfg.native_ingest, cfg.ingest_backend) == (False, "recvmmsg")
+    with pytest.raises(NotImplementedError, match="cardinality_key_budget"):
+        tconfig.Config(cardinality_key_budget=10)
 
 
 def test_local_tier_needs_an_in_process_forwarder():
@@ -674,6 +681,31 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         finally:
             local.shutdown()
             glob.shutdown()
+        import socket, time
+        srv = Server(Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                            interval=3600.0), extra_metric_sinks=[sink],
+                     device="cpu")
+        srv.start()
+        try:
+            assert srv.native is not None
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+                s.sendto(b"n.c:3|c\\nn.h:1|h", srv.statsd_addrs[0][1])
+            deadline = time.time() + 10.0
+            while srv.native.stats()["packets"] < 1:
+                assert time.time() < deadline
+                time.sleep(0.01)
+                srv._drain_native()
+            srv.flush()
+            got = {m.name: m.value for m in sink.queue.get(timeout=5)}
+            assert got["n.c"] == 3.0, got
+        finally:
+            srv.shutdown()
+        from veneur_tpu_torch.protocol import forward_pb2, metric_pb2
+        ml = forward_pb2.MetricList(metrics=[metric_pb2.Metric(
+            name="p.c", type=metric_pb2.Counter,
+            counter=metric_pb2.CounterValue(value=4))])
+        agg = srv.aggregator
+        assert agg.import_payload(ml.SerializeToString()) == (1, 0)
         import os, tempfile
         from veneur_tpu_torch.cli import veneur as cli
         from veneur_tpu_torch.config import read_config

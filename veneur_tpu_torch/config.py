@@ -7,9 +7,9 @@ fields this package serves come first; every other field is accepted
 at its default and raises NotImplementedError at any other value
 (UNSUPPORTED below says what each needs), whether it comes from a
 `Config(...)` call, a YAML file or a `VENEUR_*` environment override.
-`native_ingest` is the one field left out: the package has no native
-ingest engine, so `Config(native_ingest=...)` fails as an unknown
-argument, and the loaders accept the key only when it is false.
+`native_ingest` (on by default, as there) reads UDP through the native
+ingest engine's C++ readers (`ingest/`), tuned by the `ingest_*`
+options; false keeps the Python readers.
 
 The loader is the JAX package's (`util/config/config.go:16-63`): the file
 is template-expanded (`$NAME` / `${NAME}` from the environment), parsed
@@ -135,8 +135,26 @@ class Config:
     query_window_slots: int = 0
     query_slot_seconds: float = 0.0
 
-    # ingest
+    # ingest: num_readers UDP sockets a listener (SO_REUSEPORT), read by
+    # the native engine's C++ readers (native_ingest, ingest/) or by
+    # Python threads.  The engine's tuning (its defaults when 0 /
+    # "auto"): ingest_reader_shards sockets and readers instead of
+    # num_readers, ingest_reader_pinning pins reader i to CPU i, the
+    # datagrams a receive burst takes, the tokenizer's SIMD mode
+    # (auto|scalar|sse2|avx2), the receive backend (auto|recvmmsg|
+    # io_uring; auto probes io_uring), the staging ring's slots a
+    # reader, the drain cadence (0: min(interval / 10, 0.5 s)), and the
+    # interned identities past which a drain clears the intern table
     num_readers: int = 1
+    native_ingest: bool = True
+    ingest_reader_shards: int = 0
+    ingest_reader_pinning: bool = False
+    ingest_reader_batch: int = 0
+    ingest_simd: str = "auto"
+    ingest_backend: str = "auto"
+    ingest_ring_slots: int = 0
+    ingest_drain_interval: float = 0.0
+    intern_gc_threshold: int = 1_000_000
     metric_max_length: int = 4096
     read_buffer_size_bytes: int = 2 * 1024 * 1024
 
@@ -200,15 +218,7 @@ class Config:
     distributed_num_processes: int = 0
     distributed_process_id: int = -1
     digest_float64: bool = False
-    ingest_reader_shards: int = 0
-    ingest_reader_pinning: bool = False
-    ingest_reader_batch: int = 0
-    ingest_simd: str = "auto"
-    ingest_backend: str = "auto"
-    ingest_ring_slots: int = 0
-    ingest_drain_interval: float = 0.0
     eager_device_sync: bool = True
-    intern_gc_threshold: int = 1_000_000
     num_span_workers: int = 1
     trace_max_length_bytes: int = 16 * 1024 * 1024
     span_channel_capacity: int = 100
@@ -418,7 +428,6 @@ def parse_family_rules(default: str, rules) -> list[tuple]:
 
 
 # option -> what it needs that this package does not have
-_NATIVE = "the native ingest engine"
 _JAX = "JAX compilation, which this package does not use"
 _PROFILING = "the profiling endpoints"
 _TRACING = "flush tracing"
@@ -447,10 +456,6 @@ UNSUPPORTED = {
     **dict.fromkeys(("distributed_coordinator", "distributed_num_processes",
                      "distributed_process_id"), "multi-host meshes"),
     "digest_float64": "float64 digest evaluation",
-    **dict.fromkeys(("ingest_reader_shards", "ingest_reader_pinning",
-                     "ingest_reader_batch", "ingest_simd", "ingest_backend",
-                     "ingest_ring_slots", "ingest_drain_interval",
-                     "intern_gc_threshold"), _NATIVE),
     **dict.fromkeys(("eager_device_sync", "compilation_cache_dir",
                      "prewarm_flush_shapes", "prewarm_depths"), _JAX),
     **dict.fromkeys(("num_span_workers", "trace_max_length_bytes",
@@ -508,16 +513,6 @@ def _coerce(key: str, value: Any) -> Any:
     return value
 
 
-def _refuse_native_ingest(value: Any) -> None:
-    """The JAX package's `native_ingest` switch, which this package has
-    no field for: false (what it does) passes, true raises."""
-    if value:
-        raise NotImplementedError(
-            f"config option native_ingest={value!r} is not supported here "
-            "(the native ingest engine, ROADMAP A9); set it false or "
-            "leave it out")
-
-
 def _load(data: dict, strict: bool) -> Config:
     """YAML mapping -> Config, before the overrides, the defaults and
     validate()."""
@@ -536,8 +531,6 @@ def _load(data: dict, strict: bool) -> Config:
         elif key in ("metric_sinks", "span_sinks"):
             setattr(cfg, key, [sink_mod.SinkSpec.from_dict(d)
                                for d in value])
-        elif key == "native_ingest":
-            _refuse_native_ingest(value)
         elif key in known:
             setattr(cfg, key, _coerce(key, value))
         elif strict:
@@ -559,10 +552,6 @@ def load_config_dict(data: dict, strict: bool = False,
 def _env_overrides(cfg: Config, environ: dict[str, str]) -> None:
     """envconfig-style overrides: VENEUR_<FIELDNAME> or
     VENEUR_<FIELD_NAME> (util/config:57-60)."""
-    raw = environ.get("VENEUR_NATIVEINGEST",
-                      environ.get("VENEUR_NATIVE_INGEST"))
-    if raw is not None:
-        _refuse_native_ingest(raw.lower() in ("1", "true", "yes"))
     for f in fields(Config):
         env_key = _ENV_PREFIX + f.name.replace("_", "").upper()
         alt_key = _ENV_PREFIX + f.name.upper()

@@ -57,7 +57,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from veneur_tpu_torch import resolve_device
+from veneur_tpu_torch import ingest, resolve_device
 from veneur_tpu_torch.config import check_mesh_families, parse_family_rules
 from veneur_tpu_torch.core import arena as arena_mod
 from veneur_tpu_torch.cubes import CubeMaintainer, parse_dimensions
@@ -65,7 +65,7 @@ from veneur_tpu_torch.forward import convert
 from veneur_tpu_torch.ops import compactor_eval as ce
 from veneur_tpu_torch.ops import moments_eval as me
 from veneur_tpu_torch.parallel import serving
-from veneur_tpu_torch.protocol import forward_pb2
+from veneur_tpu_torch.protocol import forward_pb2, metric_pb2
 from veneur_tpu_torch.query.rings import WindowRing
 from veneur_tpu_torch.samplers import samplers as sm
 from veneur_tpu_torch.samplers.metric_key import (MetricKey, MetricScope,
@@ -523,12 +523,91 @@ class MetricAggregator:
                                         np.asarray(g_vals, np.float64))
         return ok, failed
 
+    # the value oneof codes of the native wire scan (`ingest.import_scan`)
+    _SCAN_WHICH = {1: "counter", 2: "gauge", 3: "set", 4: "histogram"}
+
     def import_payload(self, payload: bytes) -> tuple[int, int]:
-        """V1 import from a MetricList's bytes, parsed in Python, then
-        import_pb_batch.  (The JAX package scans the wire natively here;
-        that engine is ROADMAP A9.)"""
-        return self.import_pb_batch(
-            forward_pb2.MetricList.FromString(payload).metrics)
+        """V1 import from a MetricList's bytes
+        (`veneur_tpu/core/aggregator.py:741-852`): the native wire scan
+        (`ingest.import_scan`) yields each record's identity hash, value
+        oneof, type and counter or gauge value, so a counter or gauge
+        whose identity was seen this interval costs one cache lookup,
+        and each family merges vectorized; set and histogram records
+        parse alone from their byte ranges and take import_metric's
+        routing.  Type/oneof agreement, scope and refusals are
+        import_pb_batch's.  A payload that fails the wire scan goes to
+        import_pb_batch, which imports or raises as for any malformed
+        bytes; an engine that cannot build or load raises.  Returns
+        (imported, failed)."""
+        scan = ingest.import_scan(payload)
+        if scan is None:
+            return self.import_pb_batch(
+                forward_pb2.MetricList.FromString(payload).metrics)
+        n = scan["n"]
+        if n == 0:
+            return 0, 0
+        h_lo = scan["h_lo"].tolist()
+        h_hi = scan["h_hi"].tolist()
+        which = scan["which"].tolist()
+        mtypes = scan["mtype"].tolist()
+        vals = scan["value"].tolist()
+        offs = scan["rec_off"].tolist()
+        lens = scan["rec_len"].tolist()
+        cache = self._import_row_cache
+        legal = self._ONEOF_LEGAL_TYPES
+        c_rows: list = []
+        c_vals: list = []
+        g_rows: list = []
+        g_vals: list = []
+        staged: list = []
+        ok = failed = 0
+        with self.lock:
+            for i in range(n):
+                kind = self._SCAN_WHICH.get(which[i])
+                # a nil value, or a type its value oneof cannot carry,
+                # fails before any parse (and before the row cache)
+                if kind is None or mtypes[i] not in legal[kind]:
+                    failed += 1
+                    continue
+                try:
+                    if kind in ("counter", "gauge"):
+                        ck = (h_lo[i], h_hi[i], which[i])
+                        row = cache.get(ck)
+                        if row is None:
+                            pb = metric_pb2.Metric.FromString(
+                                payload[offs[i]:offs[i] + lens[i]])
+                            tags = list(pb.tags)
+                            mkind = (sm.TYPE_COUNTER if kind == "counter"
+                                     else sm.TYPE_GAUGE)
+                            arena = (self.counters if kind == "counter"
+                                     else self.gauges)
+                            row = cache[ck] = arena.row_for(
+                                MetricKey(pb.name, mkind,
+                                          ",".join(sorted(tags))),
+                                MetricScope.GLOBAL_ONLY, tags)
+                        if kind == "counter":
+                            c_rows.append(row)
+                            c_vals.append(vals[i])
+                        else:
+                            g_rows.append(row)
+                            g_vals.append(vals[i])
+                    else:
+                        fm = convert.from_pb(metric_pb2.Metric.FromString(
+                            payload[offs[i]:offs[i] + lens[i]]))
+                        self._merge_locked(fm, self._import_scope(fm),
+                                           staged)
+                    self.imported += 1
+                    ok += 1
+                except Exception:   # noqa: BLE001 - wire input: fails alone
+                    failed += 1
+            self._merge_staged_moments(staged)
+            if c_rows:
+                self.counters.merge_batch(np.asarray(c_rows, np.int64),
+                                          np.asarray(c_vals, np.float64))
+            if g_rows:
+                self.gauges.merge_batch(np.asarray(g_rows, np.int64),
+                                        np.asarray(g_vals, np.float64))
+        return ok, failed
 
     def sync_staged(self, min_samples: int = 0) -> bool:
         """Consolidate staged samples now if the backlog is worth it (the

@@ -42,6 +42,10 @@ from veneur_tpu_torch.sketches import tdigest as td
 # staged depth beyond which a row pre-reduces into <= C weighted points
 # (bounds the flush dense matrix width)
 DENSE_DEPTH_CAP = 512
+# staged points above which the dense build fills through the native
+# single-pass fill (`ingest.fill_dense`) instead of numpy's argsort and
+# scatter (`_NATIVE_FILL_MIN` of the JAX package)
+_NATIVE_FILL_MIN = 65536
 # per-row column bound inside one pre-reduction launch
 HOT_CHUNK_WIDTH = 16_384
 # dense-matrix element bound per pre-reduction launch
@@ -302,6 +306,11 @@ class CounterArena(_ArenaBase):
     def sample(self, row: int, value: float, sample_rate: float) -> None:
         # Sample divides by rate at ingest (samplers.go:109-111)
         self.values[row % self.n_lanes, row] += int(value / sample_rate)
+
+    def sample_batch(self, rows: np.ndarray, vals: np.ndarray) -> None:
+        """Columnar counter increments already divided by their sample
+        rates (the native drain, `ingest.NativeIngest`)."""
+        np.add.at(self.values, (rows % self.n_lanes, rows), vals)
 
     def merge(self, row: int, value: int) -> None:
         self.values[row % self.n_lanes, row] += value
@@ -702,6 +711,10 @@ class DigestArena(_ArenaBase):
         # False while every staged weight this interval is exactly 1.0:
         # the flush then takes the depth-vector program (B3)
         self._staged_nonuniform = False
+        # dense builds through the native fill, and native fills that
+        # dropped a point (a broken invariant) and went to numpy instead
+        self.dense_fill_native = 0
+        self.dense_fill_fallbacks = 0
 
     def _grow_state(self, old: int) -> None:
         def pad(a, fill):
@@ -924,7 +937,14 @@ class DigestArena(_ArenaBase):
         With bf16 staging the values come back as a CPU bfloat16 tensor
         instead (numpy has no bfloat16): the float32 matrix converts on
         the host, so only half its bytes cross to the device.  Weights,
-        depths and min/max keep their types."""
+        depths and min/max keep their types.
+
+        Above _NATIVE_FILL_MIN staged points the matrices fill in one
+        pass through the native engine (`ingest.fill_dense`,
+        `arena.py:1577-1609` of the JAX package), bitwise what the numpy
+        scatter builds; a fill that drops a point (a staged row outside
+        `touched`) is counted in dense_fill_fallbacks and rebuilt by
+        numpy."""
         rows, vals, wts = staged
         if len(rows) and (int(rows.min()) < 0
                           or int(rows.max()) >= self.capacity):
@@ -938,6 +958,12 @@ class DigestArena(_ArenaBase):
         dense_id = np.full(self.capacity, -1, np.int64)
         dense_id[touched] = np.arange(nd)
         r = dense_id[rows]
+        if len(r) >= _NATIVE_FILL_MIN:
+            built = self._fill_native(rows, vals, wts, r, dense_id, nd,
+                                      u_pad, uniform, d_min_t, d_max_t)
+            if built is not None:
+                return built
+            self.dense_fill_fallbacks += 1
         order = np.argsort(r, kind="stable")
         r, v = r[order], vals[order]
         first = np.searchsorted(r, np.arange(nd))
@@ -962,6 +988,36 @@ class DigestArena(_ArenaBase):
         minmax[1, :nd] = d_max_t
         dw = np.zeros((u_pad, d_pad), np.float32)
         dw[r, pos] = wts[order]
+        return dv, dw, minmax
+
+    def _fill_native(self, rows, vals, wts, rid, dense_id, nd, u_pad,
+                     uniform, d_min_t, d_max_t):
+        """build_dense through the native fill; None when a staged row
+        is outside `touched` or the fill dropped a point."""
+        from veneur_tpu_torch import ingest
+        if int(rid.min()) < 0:
+            return None
+        depth = max(int(np.bincount(rid, minlength=nd).max()), 1)
+        d_pad = max(2, self.n_replicas * _pow2(-(-depth // self.n_replicas)))
+        dv = np.zeros((u_pad, d_pad), np.float32)
+        depths_vec = np.zeros(u_pad, np.int16)
+        dw = None if uniform else np.zeros((u_pad, d_pad), np.float32)
+        dropped = ingest.fill_dense(
+            np.ascontiguousarray(rows, np.int64),
+            np.ascontiguousarray(vals, np.float64),
+            None if uniform else np.ascontiguousarray(wts, np.float64),
+            dense_id, dv, dw, depths_vec)
+        if dropped:
+            return None
+        self.dense_fill_native += 1
+        if self.stage_dtype != torch.float32 and (
+                uniform or self.compact_general):
+            dv = torch.from_numpy(dv).to(self.stage_dtype)
+        if uniform:
+            return dv, depths_vec, None
+        minmax = np.zeros((2, u_pad), np.float32)
+        minmax[0, :nd] = d_min_t
+        minmax[1, :nd] = d_max_t
         return dv, dw, minmax
 
     def put_dense(self, dv: np.ndarray, dw: np.ndarray,

@@ -2,12 +2,17 @@
 forwarding and import, and the lifecycle the command line drives.
 
 Counterpart of `veneur_tpu.core.server` (the reference `Server`,
-`server.go:106-174,462-868`) for what this package serves: UDP (with
-SO_REUSEPORT reader threads, `networking.go:54-107`) and TCP statsd
-listeners on Python reader threads, events and service checks
-(`server.go:942-993`), the interval flush ticker and a synchronous
-fan-out to the metric sinks.  `start()` runs the ticker; `serve()`
-blocks until `stop_serving()`, `request_graceful_restart()` (SIGUSR2)
+`server.go:106-174,462-868`) for what this package serves: UDP statsd
+listeners (SO_REUSEPORT sockets, `networking.go:54-107`) read by the
+native ingest engine's C++ readers (`native_ingest`, the default;
+`ingest/`) or by Python threads, TCP statsd listeners on Python
+threads, events and service checks (`server.go:942-993`), the interval
+flush ticker and a synchronous fan-out to the metric sinks.  With the
+engine, a drainer thread folds its staged batches into the aggregator
+every `ingest_drain_interval`, and each flush drains everything the
+readers took off their sockets before it began; an engine that fails
+to build or load makes start() raise.  `start()` runs the ticker;
+`serve()` blocks until `stop_serving()`, `request_graceful_restart()` (SIGUSR2)
 or `shutdown()`; `graceful_restart_drain()` hands the UDP ports to a
 replacement that joined their SO_REUSEPORT groups without losing a
 datagram (`server.go:1365-1413`).  A global tier (`grpc_address`)
@@ -31,6 +36,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import logging
+import os
 import select
 import socket
 import threading
@@ -149,7 +155,11 @@ class Server:
         self._events: list[parser_mod.SSFSample] = []
         self._events_lock = threading.Lock()
         self.parse_errors = 0
+        self.too_long = 0
         self.forward_errors = 0
+        # the native ingest engine (start() builds it when native_ingest
+        # is on and a UDP listener is configured)
+        self.native = None
         self.flush_count = 0
         self.last_flush = None      # FlushResult of the last flush
         self._flush_serial = threading.Lock()
@@ -214,6 +224,8 @@ class Server:
         server.go:1109-1133)."""
         if len(buf) > self.config.metric_max_length:
             logger.debug("packet too long (%d bytes)", len(buf))
+            with self._events_lock:
+                self.too_long += 1
             return
         for line in buf.split(b"\n"):
             if line:
@@ -223,7 +235,21 @@ class Server:
 
     def start(self) -> None:
         """Bind the statsd listeners, start their readers and the flush
-        ticker (one flush every `interval` seconds)."""
+        ticker (one flush every `interval` seconds).  With native_ingest
+        and a UDP listener, the native engine reads UDP (C++ readers)
+        and a drainer thread folds its batches in; a failed build or
+        load of the engine raises."""
+        cfg = self.config
+        if cfg.native_ingest and any(
+                parse_listen_addr(a)[0] == "udp"
+                for a in cfg.statsd_listen_addresses):
+            from veneur_tpu_torch.ingest import NativeIngest
+            self.native = NativeIngest(
+                self.aggregator, max_packet=cfg.metric_max_length,
+                implicit_tags=list(cfg.extend_tags),
+                on_other=self.handle_metric_packet, simd=cfg.ingest_simd,
+                backend=cfg.ingest_backend, batch=cfg.ingest_reader_batch,
+                ring_slots=cfg.ingest_ring_slots)
         for sink in self.metric_sinks:
             sink.start(None)
         for addr in self.config.statsd_listen_addresses:
@@ -235,7 +261,35 @@ class Server:
                 self._import_payload_counted,
                 handle_packet=self._grpc_packet_counted, dedup=self.dedup)
             self.grpc_import.start()
+        if self.native is not None:
+            self._spawn(self._native_drain_loop, "ingest-drain")
         self._spawn(self._ticker, "flush-ticker")
+
+    def _count_drained(self, batch) -> None:
+        """Account a native drain: its datagrams as received over udp,
+        its malformed lines and oversized datagrams as the Python path
+        counts them."""
+        if batch.packets:
+            self._count_proto("udp", batch.packets)
+        if batch.malformed or batch.too_long:
+            with self._events_lock:
+                self.parse_errors += batch.malformed
+                self.too_long += batch.too_long
+
+    def _drain_native(self) -> None:
+        """Fold what the native engine has staged into the aggregator."""
+        if self.native is not None:
+            self._count_drained(self.native.drain_into())
+
+    def _native_drain_loop(self) -> None:
+        iv = self.config.ingest_drain_interval or min(
+            self.config.interval / 10.0, 0.5)
+        while not self._shutdown.wait(iv):
+            try:
+                self._count_drained(self.native.drain_or_gc(
+                    self.config.intern_gc_threshold))
+            except Exception:
+                logger.exception("native ingest drain failed")
 
     def _count_proto(self, proto: str, n: int) -> None:
         with self._proto_lock:
@@ -267,7 +321,11 @@ class Server:
         family = socket.AF_INET6 if ":" in host else socket.AF_INET
         if scheme == "udp":
             bound = None
-            for i in range(max(1, self.config.num_readers)):
+            n_socks = max(1, self.config.num_readers)
+            if self.native is not None and self.config.ingest_reader_shards:
+                n_socks = self.config.ingest_reader_shards
+            n_cpus = os.cpu_count() or 1
+            for i in range(n_socks):
                 sock = socket.socket(family, socket.SOCK_DGRAM)
                 # SO_REUSEPORT kernel load balancing (socket_linux.go:26-28)
                 sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
@@ -278,6 +336,13 @@ class Server:
                     bound = sock.getsockname()
                     port = bound[1]          # resolve port 0
                 self._listeners.append(sock)
+                if self.native is not None:
+                    # a C++ reader owns this socket until native.stop()
+                    self.native.engine.add_udp_reader(
+                        sock.fileno(), pin_cpu=(
+                            i % n_cpus if self.config.ingest_reader_pinning
+                            else -1))
+                    continue
                 lock = threading.Lock()
                 self._reader_locks.append(lock)
                 self._reader_threads.append(self._spawn(
@@ -361,8 +426,13 @@ class Server:
         """One flush interval: evaluate, fan the metrics and events out to
         every sink, and on a local tier submit the forwardable metrics to
         the forward pool (wait_forwards waits for them).  Serialized
-        across callers.  Returns the FlushResult."""
+        across callers.  Whatever a UDP reader has taken off its socket
+        before the flush began is in its interval (the native engine's
+        cut, or each Python reader's lock).  Returns the FlushResult."""
         with self._flush_serial:
+            if self.native is not None:
+                for batch in self.native.drain_cut():
+                    self._count_drained(batch)
             for lock in self._reader_locks:
                 with lock:      # the datagram a reader holds goes first
                     pass
@@ -499,8 +569,12 @@ class Server:
 
     def _drain_udp(self) -> None:
         """Process every datagram still queued on the UDP listeners;
-        after _stop_intake, so the queues only shrink."""
+        after _stop_intake and after the readers stopped, so the queues
+        only shrink.  With the native engine they go through it, on a
+        thread id of their own."""
         bufsize = self.config.metric_max_length + 1
+        tid = (self.native.engine.new_thread() if self.native is not None
+               else None)
         for sock in self._listeners:
             if sock.type != socket.SOCK_DGRAM:
                 continue
@@ -509,18 +583,21 @@ class Server:
                     data = sock.recv(bufsize, socket.MSG_DONTWAIT)
                 except OSError:     # BlockingIOError: the queue is empty
                     break
-                if data:
+                if tid is not None:
+                    self.native.engine.ingest(tid, data)
+                elif data:
                     self.process_packet_buffer(data)
 
     def shutdown(self) -> None:
         """server.go:1417-1435: stop the ticker; stop the UDP intake
-        (_stop_intake), the readers (each finishes what it holds) and
-        process what is still queued, so the final flush, if
-        configured, holds every datagram that reached a listener before
-        the shutdown; a bounded wait for the forwards in flight; then
-        stop the import source, close the forward client and every
-        socket.  Idempotent: a second call (the CLI's, after POST
-        /quitquitquit) waits for the first and returns."""
+        (_stop_intake), the readers (each finishes what it holds; the
+        native engine joins its C++ readers) and process what is still
+        queued, so the final flush, if configured, holds every datagram
+        that reached a listener before the shutdown; a bounded wait for
+        the forwards in flight; then stop the import source, close the
+        forward client, the engine and every socket.  Idempotent: a
+        second call (the CLI's, after POST /quitquitquit) waits for the
+        first and returns."""
         with self._close_lock:
             if self._closed:
                 return
@@ -541,6 +618,8 @@ class Server:
                     conn.shutdown(socket.SHUT_RDWR)
                 except OSError:
                     pass
+            if self.native is not None:
+                self.native.stop()
             for t in self._reader_threads:
                 t.join(timeout=2.0)
             self._drain_udp()
@@ -555,7 +634,11 @@ class Server:
                 self.grpc_import.stop()
             if isinstance(self.forwarder, ForwardClient):
                 self.forwarder.close()
+            # native.stop() joined the C++ readers above, so no reader
+            # can see a closed (or recycled) fd
             for sock in self._listeners:
                 sock.close()
             for t in self._threads:
                 t.join(timeout=2.0)
+            if self.native is not None:
+                self.native.close()
