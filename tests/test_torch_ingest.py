@@ -767,6 +767,55 @@ def test_flush_cut_takes_what_the_readers_received():
         srv.shutdown()
 
 
+_C17_DGRAM = b"a:1|c\n_e{3,3}:\xff\xfe\xfd|abc\nb:2|c"
+
+
+@pytest.mark.parametrize("path", ["native-cut", "native-drainer", "python"])
+def test_c17_a_line_that_is_not_utf8_costs_that_line_alone(path):
+    """ROADMAP C17: an event that is not UTF-8 makes the parser raise
+    UnicodeDecodeError (C16).  Through the C++ readers it is replayed in
+    the flush's cut or in a drainer tick, through the Python readers on
+    the reader thread; on every path the server counts it as a parse
+    error, the flush emits the datagram's two counters, and a later
+    datagram is still staged."""
+    native = path != "python"
+    drain_s = 0.02 if path == "native-drainer" else 3600.0
+    srv = Server(tconfig.Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                                native_ingest=native, interval=3600.0,
+                                ingest_drain_interval=drain_s),
+                 device="cpu")
+    srv.start()
+    try:
+        addr = srv.statsd_addrs[0][1]
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            s.sendto(_C17_DGRAM, addr)
+            if path == "native-cut":
+                _wait(lambda: _received(srv) == 1, "the datagram")
+                assert srv.native.engine.totals()[2] == 0
+            elif path == "native-drainer":
+                _wait(lambda: srv.native.engine.totals()[2] == 1,
+                      "a drainer tick")
+                assert srv.parse_errors == 1
+            else:
+                _wait(lambda: srv.parse_errors == 1, "the bad line")
+            res = srv.flush()
+            assert {m.name: m.value for m in res.metrics} == {"a": 1.0,
+                                                               "b": 2.0}
+            assert srv.parse_errors == 1
+            s.sendto(b"c:3|c", addr)
+            if native:
+                _wait(lambda: _received(srv) == 2, "the later datagram")
+            else:
+                # processed restarts at each flush
+                _wait(lambda: srv.aggregator.processed == 1,
+                      "the later datagram")
+            res = srv.flush()
+        assert {m.name: m.value for m in res.metrics} == {"c": 3.0}
+        assert srv.parse_errors == 1
+    finally:
+        srv.shutdown()
+
+
 def test_reader_options_shards_backend_and_simd():
     srv = Server(tconfig.Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
                                 num_readers=1, ingest_reader_shards=3,

@@ -214,7 +214,11 @@ class Server:
             else:
                 self.parser.parse_metric(packet,
                                          self.aggregator.process_metric)
-        except parser_mod.ParseError as e:
+        except (parser_mod.ParseError, UnicodeDecodeError) as e:
+            # a line that is not UTF-8 costs that line alone, as in the
+            # reference (ROADMAP C17): the parser raises
+            # UnicodeDecodeError for it (C16), which must neither end a
+            # reader thread nor fail the flush that replays the line
             with self._events_lock:
                 self.parse_errors += 1
             logger.debug("could not parse packet %r: %s", packet[:64], e)
