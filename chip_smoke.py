@@ -12,8 +12,10 @@ over HTTP; a meshed server beside an unmeshed one; a local and a
 global over real gRPC, held to the in-process hop), then runs the
 full-size flushes of the north star (100k digests, and 100k moments
 sketches, per interval, and 100k 64-centroid digests forwarded from a
-local to a global over gRPC), of the compactor tier (16,384 ladders), the
-group-by read over 102,400 + 102,400 series in 4,096 cube groups, the
+local to a global over gRPC, and from two locals through the proxy
+tier, `veneur_tpu_torch/proxy/` as its own process, to two globals), of
+the compactor tier (16,384 ladders), the group-by read over 102,400 +
+102,400 series in 4,096 cube groups, the
 meshed 100k-key global flush (on a one-card mesh, and on 2 x 2 and
 2 x 3 meshes over the same card) and the moments global flush on a
 2 x 2 one-card mesh beside the unmeshed one, and times them; then one
@@ -3710,6 +3712,502 @@ def grpc_cell(seed=12, n_keys=100_000, per=64, budget_s=60.0):
         glob.shutdown()
 
 
+# the proxy phase's cube dimension, on both tiers of its small interval
+PROXY_DIMS = [{"tags": ["endpoint"], "match": "cq.*"}]
+# the example proxy config's TLS keys, which the port refuses (A15)
+PROXY_A15_KEYS = ("grpc_tls_address", "tls_certificate", "tls_key",
+                  "tls_authority_certificate")
+
+
+class _ProxyProcess:
+    """The port's proxy as its own process: `python -m
+    veneur_tpu_torch.cli.veneur_proxy -f <d>/<name>.yaml -device
+    DEVICE` from the repo root, its output to <d>/<name>.log, its ports
+    read from its port file."""
+
+    def __init__(self, d: str, name: str, cfg: dict):
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (ROOT, env.get("PYTHONPATH")) if p)
+        ports_path = os.path.join(d, f"{name}-ports.json")
+        path = os.path.join(d, f"{name}.yaml")
+        with open(path, "w") as f:
+            json.dump(dict(cfg, port_file=ports_path), f)
+        self.name, self.log_path = name, os.path.join(d, f"{name}.log")
+        self.log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "veneur_tpu_torch.cli.veneur_proxy",
+             "-f", path, "-device", DEVICE], cwd=ROOT, env=env,
+            stdout=self.log, stderr=subprocess.STDOUT)
+        try:
+            _wait_file(ports_path, lambda: self.proc.poll() is None,
+                       f"proxy {name}")
+            with open(ports_path) as f:
+                ports = json.load(f)
+            require(ports["pid"] == self.proc.pid, ports)
+        except BaseException:
+            self.close(failed=True)
+            raise
+        self.grpc, self.http = ports["grpc"], ports["http"]
+
+    def cpu_s(self) -> float:
+        """The process's user + system CPU seconds (/proc/<pid>/stat)."""
+        with open(f"/proc/{self.proc.pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        return (int(fields[11]) + int(fields[12])) / os.sysconf(
+            "SC_CLK_TCK")
+
+    def debug_vars(self) -> dict:
+        code, body = _http(self.http, "/debug/vars")
+        require(code == 200, f"proxy {self.name} /debug/vars: {code}")
+        return json.loads(body)
+
+    def close(self, failed: bool = False) -> None:
+        """SIGTERM, which must end it with exit code 0."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.log.close()
+        rc = self.proc.returncode
+        if failed or rc != 0:
+            with open(self.log_path) as f:
+                log(f"proxy {self.name} (exit {rc}) log tail:\n"
+                    + "".join(f.readlines()[-30:]))
+        if not failed:
+            require(rc == 0, f"proxy {self.name} exited {rc}")
+
+
+def _proxy_globals(n_keys):
+    """Two port globals on the card for the proxy phase: gRPC import on
+    127.0.0.1:0, the query plane (a 4-slot window ring) over an HttpApi,
+    the moments rule and PROXY_DIMS.  Each counts the V1 RPCs it imports
+    in `rpcs`.  -> [(server, api, grpc address)]."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.http_api import HttpApi
+    from veneur_tpu_torch.sinks.simple import BlackholeMetricSink
+
+    out = []
+    try:
+        for i in range(2):
+            srv = Server(Config(
+                grpc_address="127.0.0.1:0", hostname=f"proxy-g{i}",
+                percentiles=PERCENTILES, interval=3600.0,
+                arena_initial_capacity=n_keys, query_window_slots=4,
+                cube_dimensions=PROXY_DIMS, cube_group_budget=64,
+                sketch_family_rules=MOMENT_RULES),
+                extra_metric_sinks=[BlackholeMetricSink()], device=DEVICE)
+            srv.start()
+            imp, lock = srv.grpc_import, threading.Lock()
+            srv.rpcs = 0
+
+            def counted(payload, srv=srv, orig=imp.import_payload,
+                        lock=lock):
+                with lock:
+                    srv.rpcs += 1
+                return orig(payload)
+
+            imp.import_payload = counted
+            api = HttpApi(srv, "127.0.0.1:0")
+            api.start()
+            out.append((srv, api, f"127.0.0.1:{imp.port}"))
+    except BaseException:
+        _stop_proxy_globals(out)
+        raise
+    return out
+
+
+def _stop_proxy_globals(globs) -> None:
+    for srv, api, _ in globs:
+        api.stop()
+        srv.shutdown()
+
+
+def _routing_key(f, ignore=()) -> str:
+    """The proxy's routing key of a forwarded metric: name, kind, and
+    its tags but those starting with a prefix in `ignore`, joined."""
+    tags = [t for t in f.tags if not t.startswith(tuple(ignore))]
+    return f"{f.name}{f.kind}{','.join(tags)}"
+
+
+def _await_imports(globs, imp0, want, what, timeout=600.0) -> None:
+    """Wait until each global's import count has moved by `want`."""
+    def got():
+        return [g.grpc_import.imported_count - i0
+                for (g, _, _), i0 in zip(globs, imp0)]
+
+    deadline = time.perf_counter() + timeout
+    while any(n < w for n, w in zip(got(), want)):
+        require(time.perf_counter() < deadline,
+                f"{what}: the globals imported {got()} of {want}")
+        time.sleep(0.001)
+    require(got() == want, f"{what}: the globals imported {got()} of "
+            f"{want}")
+
+
+def proxy_cell(d, globs, seed=15, n_keys=100_000, per=64,
+               n_counters=10_000, n_sets=1_000, members=100):
+    """local x 2 -> proxy -> global x 2 at the north star's size, the
+    proxy its own process (`cli/veneur_proxy.py`) routing through the
+    native router (no ignore_tags): 100,000 histogram keys of `per`
+    integer samples, each key's samples split half and half over the
+    two locals (even values on one, odd on the other), so that every
+    global merges two digests a key; `n_counters` global-only counters
+    and `n_sets` sets of `members` members (half on each local), staged
+    in bulk at the locals.  One warm-up interval at a tenth of the keys,
+    then one timed interval.  Checks on the timed one: every emitted key
+    on exactly one global, the one ConsistentHash names; both globals
+    took keys; the union of their InterMetrics equal, value for value,
+    to those of a MetricAggregator that imports both locals' forwarded
+    lists; the proxy's /debug/vars with received == routed and nothing
+    dropped or without a destination.  Times the locals' flushes, the
+    forward (the last local flush's return -> both globals' imports
+    complete), each global's flush and the proxy's CPU seconds."""
+    import torch
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.core.aggregator import MetricAggregator
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.proxy.consistent import ConsistentHash
+    from veneur_tpu_torch.samplers import samplers as sm
+    from veneur_tpu_torch.samplers.metric_key import MetricKey, MetricScope
+    from veneur_tpu_torch.sinks.simple import BlackholeMetricSink
+
+    rng = np.random.default_rng(seed)
+    addrs = [a for _, _, a in globs]
+    ring = ConsistentHash(addrs)
+    proxy = _ProxyProcess(d, "proxy-cell", {
+        "grpc_address": "127.0.0.1:0", "http_address": "127.0.0.1:0",
+        "static_destinations": addrs, "http_enable_profiling": True,
+        "discovery_interval": "3600s"})
+    locs = []
+    failed = True
+    try:
+        for i in range(2):
+            locs.append(Server(Config(
+                forward_address=f"127.0.0.1:{proxy.grpc}",
+                hostname=f"proxy-l{i}", percentiles=PERCENTILES,
+                interval=3600.0, arena_initial_capacity=n_keys,
+                forward_timeout=120.0),
+                extra_metric_sinks=[BlackholeMetricSink()], device=DEVICE))
+        half, m_half = per // 2, members // 2
+
+        def rows_of(agg, nk, nc, ns):
+            """The interval's rows (row_for marks a row touched)."""
+            with agg.lock:
+                return (
+                    np.asarray([agg.digests.row_for(MetricKey(
+                        f"px.k{i}", sm.TYPE_HISTOGRAM, ""),
+                        MetricScope.MIXED, []) for i in range(nk)],
+                        np.int64),
+                    np.asarray([agg.counters.row_for(MetricKey(
+                        f"px.c{i}", sm.TYPE_COUNTER, ""),
+                        MetricScope.GLOBAL_ONLY, []) for i in range(nc)],
+                        np.int64),
+                    np.asarray([agg.sets.row_for(MetricKey(
+                        f"px.s{i}", sm.TYPE_SET, ""), MetricScope.MIXED,
+                        []) for i in range(ns)], np.int64))
+
+        def interval(frac):
+            nk, nc, ns = (n_keys // frac, n_counters // frac,
+                          n_sets // frac)
+            x = rng.integers(0, 1 << 15, (nk, per)) * 2
+            mem = rng.integers(0, 1 << 63, (ns, members), dtype=np.uint64)
+            cv = rng.integers(1, 1000, (2, nc)).astype(float)
+            for li, loc in enumerate(locs):
+                vals = (x[:, li * half:(li + 1) * half] + li).astype(float)
+                agg = loc.aggregator
+                dr, cr, sr = rows_of(agg, nk, nc, ns)
+                with agg.lock:
+                    agg.digests.sample_batch(np.repeat(dr, half),
+                                             vals.ravel(),
+                                             np.ones(nk * half))
+                    agg.digests.touched[dr] = True
+                    agg.counters.merge_batch(cr, cv[li])
+                    agg.sets.stage_hash_batch(
+                        np.repeat(sr, m_half),
+                        mem[:, li * m_half:(li + 1) * m_half].ravel())
+                    agg.sets.touched[sr] = True
+                agg.sync_staged(min_samples=1)
+            imp0 = [g.grpc_import.imported_count for g, _, _ in globs]
+            dv0, cpu0 = proxy.debug_vars(), proxy.cpu_s()
+            launches0 = _read_launches()
+            t0 = time.perf_counter()
+            res = [locs[0].flush()]
+            t1 = time.perf_counter()
+            res.append(locs[1].flush())
+            t2 = time.perf_counter()
+            fwd = res[0].forward + res[1].forward
+            owner = {}
+            want = [0, 0]
+            for f in fwd:
+                a = owner.setdefault(_routing_key(f),
+                                     ring.get(_routing_key(f)))
+                want[addrs.index(a)] += 1
+            _await_imports(globs, imp0, want, "proxy cell")
+            t3 = time.perf_counter()
+            require(all(loc.wait_forwards(120.0) for loc in locs),
+                    "a local's forward never returned")
+            cpu1 = proxy.cpu_s()
+            gres, g_ms = [], []
+            for g, _, _ in globs:
+                tg = time.perf_counter()
+                gres.append(g.flush())
+                torch.cuda.synchronize()
+                g_ms.append((time.perf_counter() - tg) * 1e3)
+            launches = {k: n - launches0[k]
+                        for k, n in _read_launches().items()
+                        if n > launches0[k]}
+            dv = proxy.debug_vars()
+            moved = {k: dv[k] - dv0[k] for k in ("received", "routed",
+                                                  "dropped",
+                                                  "no_destination")}
+            require(moved["received"] == moved["routed"] == len(fwd)
+                    and moved["dropped"] == moved["no_destination"] == 0
+                    and dv["destination_totals"]["dropped"] == 0,
+                    f"proxy /debug/vars moved {moved}, "
+                    f"{dv['destination_totals']}, {len(fwd)} forwarded")
+            for loc in locs:
+                st = loc.forwarder.stats()
+                require(st["dropped"] == 0, f"a local dropped: {st}")
+            require(len(res[0].forward) == nk + nc + ns
+                    and len(res[1].forward) == nk + nc + ns,
+                    f"forwarded {len(res[0].forward)}, "
+                    f"{len(res[1].forward)}")
+            return res, gres, owner, {
+                "keys": nk, "forwarded": len(fwd), "per_global": want,
+                "local_flush_ms": [(t1 - t0) * 1e3, (t2 - t1) * 1e3],
+                "forward_ms": (t3 - t2) * 1e3,
+                "global_flush_ms": g_ms,
+                "proxy_cpu_s": cpu1 - cpu0,
+                "local_segments": [dict(loc.aggregator.last_flush_segments)
+                                   for loc in locs],
+                "global_segments": [dict(g.aggregator.last_flush_segments)
+                                    for g, _, _ in globs],
+                "launches": launches}
+
+        warm = interval(10)[3]
+        res, gres, owner, timed = interval(1)
+        # one owner a key, the one the ring names
+        names = [set() for _ in globs]
+        for gi, r in enumerate(gres):
+            for m in r.metrics:
+                base = m.name.rsplit(".", 1)[0] if m.name.startswith(
+                    "px.k") else m.name
+                kind = {"px.k": "histogram", "px.c": "counter",
+                        "px.s": "set"}[m.name[:4]]
+                require(owner[f"{base}{kind}"] == addrs[gi],
+                        f"{m.name} on global {gi}, owned by "
+                        f"{owner[base + kind]}")
+                names[gi].add(m.name)
+        require(names[0] and names[1] and not names[0] & names[1],
+                "the globals' keys overlap or one took none")
+        ref = MetricAggregator(percentiles=PERCENTILES, is_local=False,
+                               initial_capacity=n_keys, device=DEVICE)
+        for r in res:
+            ok, bad = ref.import_metrics(r.forward)
+            require(bad == 0 and ok == len(r.forward), (ok, bad))
+        rres = ref.flush(is_local=False)
+        got = sorted((m.name, tuple(m.tags), m.type, m.value)
+                     for r in gres for m in r.metrics)
+        want = sorted((m.name, tuple(m.tags), m.type, m.value)
+                      for m in rres.metrics)
+        require(len(want) == n_keys * len(PERCENTILES) + n_counters
+                + n_sets, len(want))
+        require(got == want, "the globals behind the proxy differ from "
+                "one global importing both locals: " + str(
+                    sorted(set(got) ^ set(want))[:6]))
+        vals = np.asarray([v for *_, v in got])
+        require(np.isfinite(vals).all(), "a non-finite value")
+        failed = False
+        out = {"label": f"2 locals x {n_keys} x {per // 2} -> proxy "
+                        f"process (native router) -> 2 globals",
+               "n_keys": n_keys, "per": per, "warm_up": warm, **timed}
+        card_log(
+            f"{out['label']}: local flushes "
+            f"{timed['local_flush_ms'][0]:.1f} / "
+            f"{timed['local_flush_ms'][1]:.1f} ms, forward "
+            f"{timed['forward_ms']:.1f} ms ({timed['forwarded']} metrics, "
+            f"{timed['per_global'][0]} / {timed['per_global'][1]} a "
+            f"global), global flushes {timed['global_flush_ms'][0]:.1f} / "
+            f"{timed['global_flush_ms'][1]:.1f} ms, proxy CPU "
+            f"{timed['proxy_cpu_s']:.2f} s; warm-up at {warm['keys']} "
+            f"keys: forward {warm['forward_ms']:.1f} ms; every key on "
+            f"its ring owner, the union of {len(got)} InterMetrics equal "
+            f"to one global importing both locals; launches "
+            f"{timed['launches']}")
+        return out
+    finally:
+        for loc in locs:
+            loc.shutdown()
+        proxy.close(failed)
+
+
+def proxy_slice(d, globs, seed=16, deep_keys=2000, deep_samples=200):
+    """A second proxy process on `example_proxy.yaml`, its TLS keys
+    (A15) removed, its addresses replaced, port file and /debug/vars
+    added: its `ignore_tags` (prefix `host`) sends every batch down the
+    protobuf path.  Two locals (cube dimension PROXY_DIMS, the moments
+    rule) take DogStatsD lines, each with its own `host:` tag: `deep_keys`
+    keys of `deep_samples` samples, whose forwarded digests hold 127
+    centroids or more (ROADMAP C18: coalesced by count alone, they
+    would pass the globals' 4 MiB receive limit), `mom.*` moments keys and `cq.*` keys
+    over six endpoints.  Checks: nothing dropped, more than one V1 RPC
+    into each global; through the proxy's /query, a t-digest key and a
+    moments key against the owning global's own answer (counts exact,
+    t-digest quantiles within 1e-9 relative, moments within 1e-6 of the
+    span) and a group_by read over both globals with every group's count
+    equal to a global that imports both locals' forwards in process."""
+    import yaml
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.proxy.consistent import ConsistentHash
+
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(ROOT, "example_proxy.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    for k in PROXY_A15_KEYS:
+        cfg.pop(k)
+    addrs = [a for _, _, a in globs]
+    ignore = [t["value"] for t in cfg["ignore_tags"]]
+    require(ignore == ["host"], cfg["ignore_tags"])
+    cfg.update(grpc_address="127.0.0.1:0", http_address="127.0.0.1:0",
+               static_destinations=addrs, http_enable_profiling=True,
+               query_destinations={a: f"127.0.0.1:{api.address[1]}"
+                                   for (_, api, a) in globs})
+    ring = ConsistentHash(addrs)
+    common = dict(percentiles=PERCENTILES, interval=3600.0,
+                  sketch_family_rules=MOMENT_RULES,
+                  cube_dimensions=PROXY_DIMS, cube_group_budget=64)
+    proxy = _ProxyProcess(d, "proxy-slice", cfg)
+    locs = []
+    ref = Server(Config(hostname="proxy-ref", query_window_slots=4,
+                        **common), device=DEVICE)
+    failed = True
+    try:
+        for i in range(2):
+            locs.append(Server(Config(
+                forward_address=f"127.0.0.1:{proxy.grpc}",
+                hostname=f"proxy-sl{i}", forward_timeout=120.0, **common),
+                device=DEVICE))
+        ref.flush()     # an empty first cut, as the globals had theirs
+        for li, loc in enumerate(locs):
+            tag = b"host:l%d" % li
+            deep = rng.gamma(2.0, 20.0, (deep_keys, deep_samples))
+            for i in range(deep_keys):
+                for j in range(0, deep_samples, 100):
+                    loc.handle_metric_packet(b"pdeep.k%d:%s|h|#%s" % (
+                        i, b":".join(b"%.4f" % v for v in deep[i, j:j + 100]),
+                        tag))
+            for k in range(8):
+                for v in rng.gamma(2.0, 20.0, 2000):
+                    loc.handle_metric_packet(b"mom.plat%d:%.4f|h|#%s"
+                                             % (k, v, tag))
+            for e in range(6):
+                for v in rng.integers(1, 5000, 300):
+                    loc.handle_metric_packet(
+                        b"cq.plat:%d|h|#endpoint:e%d,%s" % (v, e, tag))
+        imp0 = [g.grpc_import.imported_count for g, _, _ in globs]
+        rpcs0 = [g.rpcs for g, _, _ in globs]
+        dv0 = proxy.debug_vars()
+        res = [loc.flush() for loc in locs]
+        fwd = res[0].forward + res[1].forward
+        per_global = [0, 0]
+        for f in fwd:
+            per_global[addrs.index(ring.get(_routing_key(f, ignore)))] += 1
+        _await_imports(globs, imp0, per_global, "proxy slice")
+        require(all(loc.wait_forwards(120.0) for loc in locs),
+                "a local's forward never returned")
+        deep_c = [len(f.digest_means) for f in fwd
+                  if f.name.startswith("pdeep.")]
+        require(len(deep_c) == 2 * deep_keys and min(deep_c) >= 127,
+                f"{len(deep_c)} deep digests, the least of "
+                f"{min(deep_c)} centroids")
+        rpcs = [g.rpcs - r0 for (g, _, _), r0 in zip(globs, rpcs0)]
+        require(min(rpcs) > 1, f"V1 RPCs into the globals: {rpcs}")
+        dv = proxy.debug_vars()
+        moved = {k: dv[k] - dv0[k] for k in ("received", "routed",
+                                              "dropped", "no_destination")}
+        require(moved["received"] == moved["routed"] == len(fwd)
+                and moved["dropped"] == moved["no_destination"] == 0
+                and dv["destination_totals"]["dropped"] == 0,
+                f"proxy /debug/vars moved {moved}, "
+                f"{dv['destination_totals']}")
+        for g, _, _ in globs:
+            g.flush()
+        ok, bad = ref.aggregator.import_metrics(fwd)
+        require((ok, bad) == (len(fwd), 0), (ok, bad))
+        ref.flush()
+        http_of = {a: api.address[1] for (_, api, a) in globs}
+        qs = "0.5,0.9,0.99"
+        worst = {"tdigest": 0.0, "moments": 0.0}
+        for name, tags, fam in (("pdeep.k7", "host:l0", "tdigest"),
+                                ("mom.plat3", "host:l1", "moments")):
+            # type= pinned: one hop, to the histogram key's owner
+            q = f"name={name}&tags={tags}&type=histogram&q={qs}&slots=1"
+            got = _http_json(proxy.http, q)
+            own = _http_json(http_of[ring.get(f"{name}histogram")], q)
+            require(got["family"] == own["family"] == fam
+                    and got["count"] == own["count"] > 0
+                    and len(got["upstreams"]) == 1, (got, own))
+            span = own["max"] - own["min"]
+            for p, w in own["quantiles"].items():
+                err = abs(got["quantiles"][p] - w)
+                rel = err / abs(w) if fam == "tdigest" else err / span
+                worst[fam] = max(worst[fam], rel)
+                require(rel <= (1e-9 if fam == "tdigest" else 1e-6),
+                        (name, p, got["quantiles"][p], w))
+        q = "name=cq.plat&group_by=endpoint&q=0.5&payload=0"
+        got = _http_json(proxy.http, q)
+        code, want = ref.query.serve(
+            {"name": ["cq.plat"], "group_by": ["endpoint"], "q": ["0.5"]})
+        require(code == 200, want)
+        require([u.get("error") for u in got["upstreams"]] == [None, None],
+                got["upstreams"])
+        gc = {e["key"]: e["count"] for e in got["groups"]}
+        wc = {e["key"]: e["count"] for e in want["groups"]}
+        require(gc == wc and len(gc) == 6
+                and set(gc.values()) == {600.0}, (gc, wc))
+        failed = False
+        out = {"forwarded": len(fwd), "per_global": per_global,
+               "rpcs": rpcs, "deep_centroids_min": min(deep_c),
+               "query_worst": worst}
+        log(f"proxy slice (example_proxy.yaml, ignore_tags): "
+            f"{len(fwd)} forwarded metrics routed with nothing dropped, "
+            f"{rpcs} V1 RPCs into the globals, deep digests of >= "
+            f"{min(deep_c)} centroids; /query through the proxy: "
+            f"t-digest within {worst['tdigest']:.2e} relative and moments "
+            f"within {worst['moments']:.2e} of the span of the owning "
+            f"global's answer, the group_by read over both globals with "
+            f"the in-process global's {len(gc)} group counts")
+        return out
+    finally:
+        for loc in locs:
+            loc.shutdown()
+        ref.shutdown()
+        proxy.close(failed)
+
+
+def phase_proxy(cell=None, slice_=None) -> dict:
+    """The proxy tier (`veneur_tpu_torch/proxy/`) on the card: two port
+    globals in this process, `proxy_cell` at full size through one
+    proxy process, then `proxy_slice` through a second."""
+    import tempfile
+
+    cell, slice_ = dict(cell or {}), dict(slice_ or {})
+    globs = _proxy_globals(cell.get("n_keys", 100_000))
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            out = {"cell": proxy_cell(d, globs, **cell)}
+            out["slice"] = proxy_slice(d, globs, **slice_)
+    finally:
+        _stop_proxy_globals(globs)
+    return out
+
+
 def mesh_cells(seed=9, n_keys=100_000, per=64, n_sets=10_000,
                n_counters=100_000, n_timed=3, grids=None):
     """The meshed global tier at the north star's scale: 100k histogram
@@ -5073,6 +5571,7 @@ def main() -> int:
     grpc_slice = _timed(phase_slice_grpc)
     full = _timed(phase_full_size)
     grpc = _timed(grpc_cell)
+    proxy = _timed(phase_proxy)
     cube = _timed(cube_cell)
     meshed, b8_b9 = _timed(mesh_cells)
     meshed += _timed(moments_mesh_cell)
@@ -5126,6 +5625,7 @@ def main() -> int:
                    "kernel_times": timed,
                    "flushes": full, "cube_cell": cube,
                    "grpc_slice": grpc_slice, "grpc_cell": grpc,
+                   "proxy": proxy,
                    "meshed_flushes": meshed, "meshed_b8_b9": b8_b9,
                    "native_ingest": native, "cli": cli, "phase_s": PHASE_S,
                    "harness": harness}, f,

@@ -25,10 +25,13 @@ its `build_dense` (numpy) and its `import_pb_batch`.
   * `import_payload` through the wire scan equal to `import_pb_batch`
     and to the JAX import on JAX-encoded payloads, and a malformed
     payload refused as the protobuf path refuses it;
+  * `route_metric_list`, the proxy's router, as the JAX binding returns
+    it from the same engine;
   * the server over real UDP through the C++ readers (and through the
     Python readers with `native_ingest: false`), the flush's cut, the
     reader options, a shutdown that loses no queued datagram, the
-    SIGUSR2 handoff, and a failed build that makes start() raise.
+    SIGUSR2 handoff, a failed build that makes start() raise, and a
+    line that is not UTF-8 costing that line alone (ROADMAP C17).
 """
 
 import difflib
@@ -640,6 +643,36 @@ def test_import_payload_refuses_a_malformed_payload_as_the_pb_path():
         with pytest.raises(type(pb_err.value)):
             agg.import_payload(bad)
     assert agg.import_payload(b"") == (0, 0)
+
+
+# -- the proxy's router -------------------------------------------------------
+
+@pytest.mark.parametrize("chunk_max", [1, 7, 2000])
+def test_route_metric_list_binds_vn_route_as_the_jax_binding(monkeypatch,
+                                                              chunk_max):
+    """The port's binding of vn_route, vn_route_dest, vn_route_chunks and
+    vn_route_free returns what the JAX package's binding returns from
+    the same engine (the JAX one does not build here, so its wrapper
+    runs on the port's copy, whose C interface is the same): per
+    destination the routed chunks, their counts and the total."""
+    from veneur_tpu_torch.protocol import forward_pb2, metric_pb2
+    from veneur_tpu_torch.proxy.consistent import ConsistentHash
+
+    monkeypatch.setattr(jingest, "load_library", ingest.load_library)
+    ms = [metric_pb2.Metric(name=f"r.m{i % 41}", type=int(i % 5),
+                            tags=[f"t:{j}" for j in range(i % 3)])
+          for i in range(300)]
+    payload = forward_pb2.MetricList(metrics=ms).SerializeToString()
+    members = [f"g{i}:8128" for i in range(4)]
+    ring = ConsistentHash(members)
+    hashes = np.asarray([h for h, _ in ring._ring], np.uint32)
+    didx = np.asarray([members.index(m) for _, m in ring._ring], np.int32)
+    got = ingest.route_metric_list(payload, hashes, didx, 4, chunk_max)
+    assert got == jingest.route_metric_list(payload, hashes, didx, 4,
+                                            chunk_max)
+    assert sum(count for _, _, count in got) == len(ms)
+    # a ring that names a destination past n_dests is refused
+    assert ingest.route_metric_list(payload, hashes, didx, 2) is None
 
 
 # -- the server ---------------------------------------------------------------

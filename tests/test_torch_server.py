@@ -609,7 +609,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     on two logical CPU devices, import every kernel module and run the
     three profiling entry points at a tiny shape, then forward from a
     port local to a port global over gRPC, then read a YAML config and
-    validate it through the command line: no jax* and no veneur_tpu
+    validate it through the command line, then boot a proxy that routes
+    one batch to a global and validate a proxy config through its
+    command line: no jax* and no veneur_tpu
     module (its generated protos included, nor the JAX package's
     scripts) may load (checked in a fresh process, since this one
     already imported both)."""
@@ -715,6 +717,27 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                     "metric_sinks: [{kind: jsonl}]\\n")
         assert read_config(path, environ={}).interval == 5.0
         assert cli.main(["-f", path, "-validate-config"]) == 0
+        from veneur_tpu_torch.cli import veneur_proxy
+        from veneur_tpu_torch.proxy.proxy import Proxy, ProxyConfig
+        glob = Server(Config(grpc_address="127.0.0.1:0", interval=3600.0),
+                      device="cpu")
+        glob.start()
+        proxy = Proxy(ProxyConfig(static_destinations=[
+            "127.0.0.1:%d" % glob.grpc_import.port]), device="cpu")
+        try:
+            proxy.start()
+            proxy.handle_metrics_raw(ml.SerializeToString())
+            deadline = time.time() + 10.0
+            while glob.grpc_import.imported_count < 1:
+                assert time.time() < deadline, proxy.stats
+                time.sleep(0.01)
+            assert proxy.stats["routed"] == 1, proxy.stats
+        finally:
+            proxy.stop()
+            glob.shutdown()
+        with open(path, "w") as f:
+            f.write("static_destinations: [127.0.0.1:1]\\n")
+        assert veneur_proxy.main(["-f", path, "-validate-config"]) == 0
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "veneur_tpu" or m.startswith("veneur_tpu.")

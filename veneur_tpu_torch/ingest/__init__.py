@@ -14,10 +14,12 @@ Events and service checks punt to the Python slow path
 (`Server.handle_metric_packet`); malformed metric lines are counted and
 dropped, as the reference logs and drops them (`server.go:956-993`).
 
-The same library serves the host halves of the flush and the import:
-`fill_dense` is the single-pass COO -> dense fill of
-`DigestArena.build_dense`, and `import_scan` the columnar wire scan of
-a V1 MetricList behind `MetricAggregator.import_payload`.
+The same library serves the host halves of the flush, the import and
+the proxy: `fill_dense` is the single-pass COO -> dense fill of
+`DigestArena.build_dense`, `import_scan` the columnar wire scan of a V1
+MetricList behind `MetricAggregator.import_payload`, and
+`route_metric_list` the proxy's parse-free ring router behind
+`Proxy.handle_metrics_raw`.
 """
 
 from __future__ import annotations
@@ -95,6 +97,13 @@ _SIGNATURES = (
     ("vn_import_scan_n", _I64, [_P]),
     ("vn_import_scan_arrays", None, [_P] + [ctypes.POINTER(_P)] * 8),
     ("vn_import_scan_free", None, [_P]),
+    ("vn_route", _P, [ctypes.c_char_p, _I64, _P, _P, _I64, ctypes.c_int,
+                      ctypes.c_int]),
+    ("vn_route_dest", None, [_P, ctypes.c_int, ctypes.POINTER(_P),
+                             ctypes.POINTER(_I64), ctypes.POINTER(_I64)]),
+    ("vn_route_chunks", None, [_P, ctypes.c_int, ctypes.POINTER(_P),
+                               ctypes.POINTER(_I64)]),
+    ("vn_route_free", None, [_P]),
 )
 
 
@@ -146,6 +155,54 @@ def import_scan(payload: bytes) -> Optional[dict]:
                 "rec_len": arr(ptrs[7], np.int64)}
     finally:
         lib.vn_import_scan_free(handle)
+
+
+def route_metric_list(payload: bytes, ring_hashes, ring_dests,
+                      n_dests: int, chunk_max: int = 2000):
+    """Parse-free consistent-hash routing of a serialized MetricList
+    (vn_route): each metric's routing key (name + type name + its tags
+    joined by ",", `handlers.go:111-112`) is hashed with CRC-32 and
+    bisected on the ring, and the raw records regroup into one region a
+    destination.  Returns a list with one entry a destination index,
+    each (chunks, chunk_counts, count): chunks a list of bytes, each a
+    valid MetricList body of at most chunk_max metrics in payload
+    order, chunk_counts their metric counts; or None if the router
+    rejected the payload (the caller takes the protobuf path).
+    ring_hashes: sorted uint32 ndarray; ring_dests: the parallel int32
+    destination indices."""
+    lib = load_library()
+    hashes = np.ascontiguousarray(ring_hashes, np.uint32)
+    dests = np.ascontiguousarray(ring_dests, np.int32)
+    handle = lib.vn_route(payload, len(payload),
+                          hashes.ctypes.data_as(ctypes.c_void_p),
+                          dests.ctypes.data_as(ctypes.c_void_p),
+                          len(hashes), n_dests, chunk_max)
+    if not handle:
+        return None
+    try:
+        out = []
+        for d in range(n_dests):
+            ptr, nbytes, count = ctypes.c_void_p(), _I64(), _I64()
+            lib.vn_route_dest(handle, d, ctypes.byref(ptr),
+                              ctypes.byref(nbytes), ctypes.byref(count))
+            offs_ptr, n_bounds = ctypes.c_void_p(), _I64()
+            lib.vn_route_chunks(handle, d, ctypes.byref(offs_ptr),
+                                ctypes.byref(n_bounds))
+            chunks: list = []
+            chunk_counts: list = []
+            n = count.value
+            if n:
+                region = ctypes.string_at(ptr.value, nbytes.value)
+                offs = np.frombuffer(ctypes.string_at(
+                    offs_ptr.value, 8 * n_bounds.value), np.int64)
+                chunks = [region[offs[i]:offs[i + 1]]
+                          for i in range(len(offs) - 1)]
+                chunk_counts = [min(chunk_max, n - i * chunk_max)
+                                for i in range(len(chunks))]
+            out.append((chunks, chunk_counts, n))
+        return out
+    finally:
+        lib.vn_route_free(handle)
 
 
 def fill_dense(rows, vals, wts, dense_id, dv, dw, depths,

@@ -1,8 +1,8 @@
 """The query engine: window fusion + quantile evaluation on read.
 
-The port's copy of `veneur_tpu.query.engine` (everything but the
-proxy's `merge_*responses` codec).  One `QueryEngine` per server answers
-`GET /query` from the arenas' window rings (query/rings.py):
+The port's copy of `veneur_tpu.query.engine`.  One `QueryEngine` per
+server answers `GET /query` from the arenas' window rings
+(query/rings.py):
 
   digest family   fuse = concatenate the covered slots' staged weighted
                   point clouds for the key (raw samples, imported
@@ -32,7 +32,9 @@ proxy's `merge_*responses` codec).  One `QueryEngine` per server answers
 Every answer carries a self-describing mergeable PAYLOAD (a centroid
 list for digests — the forwarding wire shape — or the moments /
 compactor vector), so an upper tier (the proxy's scatter-gather) can
-merge answers through the same family codecs it already speaks.
+merge answers through the same family codecs it already speaks:
+`merge_responses`, `merge_range_responses` and `merge_group_responses`
+at the end of this module, which `proxy/proxy.py` calls.
 
 Telemetry per request: the `served` and `errors` counts and a ring of
 recent latencies (`stats()`).  The JAX package also sends
@@ -1263,3 +1265,260 @@ class QueryEngine:
         by_hash = {int(fnv1a_64(c, seed)): c for c in cks}
         return ({by_hash[int(h)]: gvecs[i]
                  for i, h in enumerate(uniq)}, launch)
+
+
+# -- cross-tier merge (the proxy's scatter-gather codec) -----------------
+
+def merge_responses(responses: list[dict], qs,
+                    compression: float = 100.0, device=None) -> dict:
+    """Merge tier /query answers through their self-describing
+    payloads: digest payloads concatenate as weighted point clouds and
+    re-evaluate through the same twin; moments payloads vector-add and
+    re-solve.  Families that cannot merge exactly follow the
+    larger-mass family with `mixed_families` flagged (the same
+    degradation contract as a cross-tier sketch_family_rules
+    mismatch).  Coverage metadata merges conservatively: staleness is
+    the WORST upstream's, `partial`/`fresh` only hold if they hold
+    everywhere.  A merged digest cloud past PAYLOAD_POINT_CAP points
+    compresses, and a moments vector solves, on `device` (None:
+    CUDA)."""
+    qarr = np.asarray(list(qs), np.float64)
+    td_v: list[np.ndarray] = []
+    td_w: list[np.ndarray] = []
+    td = {"count": 0.0, "sum": 0.0, "rsum": 0.0,
+          "min": np.inf, "max": -np.inf}
+    mo_vec = None
+    cc_vec = None
+    mixed = False
+    for r in responses:
+        mixed = mixed or bool(r.get("mixed_families"))
+        p = r.get("payload")
+        if not p:
+            continue
+        if p["family"] == "tdigest":
+            td_v.append(np.asarray(p["means"], np.float64))
+            td_w.append(np.asarray(p["weights"], np.float64))
+            td["count"] += float(p["count"])
+            td["sum"] += float(p["sum"])
+            td["rsum"] += float(p.get("rsum", 0.0))
+            td["min"] = min(td["min"], float(p["min"]))
+            td["max"] = max(td["max"], float(p["max"]))
+        elif p["family"] == "moments":
+            vec = np.asarray(p["vector"], np.float64)
+            mo_vec = (vec if mo_vec is None
+                      else mo.merge_vectors(mo_vec[None, :],
+                                            vec[None, :])[0])
+        elif p["family"] == "compactor":
+            vec = np.asarray(p["vector"], np.float64)
+            cc_vec = (vec if cc_vec is None
+                      else cs.merge_vectors(cc_vec[None, :],
+                                            vec[None, :])[0])
+    mo_count = float(mo_vec[mo.IDX_COUNT]) if mo_vec is not None else 0.0
+    cc_count = float(cc_vec[cs.IDX_COUNT]) if cc_vec is not None else 0.0
+    out = {
+        "name": responses[0]["name"] if responses else "",
+        "tags": responses[0].get("tags", []) if responses else [],
+        "quantiles": {}, "count": 0.0, "sum": 0.0,
+        "min": None, "max": None, "family": "none",
+        "mixed_families": mixed or sum(
+            c > 0 for c in (td["count"], mo_count, cc_count)) > 1,
+        "slots_fused": sum(r.get("slots_fused") or 0
+                           for r in responses),
+        "partial": any(r.get("partial") for r in responses),
+        "fresh": bool(responses) and all(r.get("fresh")
+                                         for r in responses),
+        "staleness_ms": max(
+            (r["staleness_ms"] for r in responses
+             if r.get("staleness_ms") is not None), default=None),
+        "payload": None,
+    }
+    if (td["count"] >= mo_count and td["count"] >= cc_count
+            and td["count"] > 0):
+        v = np.concatenate(td_v)
+        w = np.concatenate(td_w)
+        quants = weighted_quantiles_np(v, w, td["min"], td["max"],
+                                       qarr)
+        out.update(family="tdigest", count=td["count"], sum=td["sum"],
+                   min=float(td["min"]), max=float(td["max"]))
+        if quants is not None:
+            out["quantiles"] = {repr(float(p)): float(x)
+                                for p, x in zip(qarr, quants)}
+        if len(v) > PAYLOAD_POINT_CAP:
+            v, w = _compress_payload(v, w, compression, device)
+        out["payload"] = {"family": "tdigest",
+                          "means": [float(x) for x in v],
+                          "weights": [float(x) for x in w],
+                          "min": float(td["min"]),
+                          "max": float(td["max"]),
+                          "count": td["count"], "sum": td["sum"],
+                          "rsum": td["rsum"]}
+    elif mo_count >= cc_count and mo_count > 0:
+        quants = me.quantiles_from_vectors(mo_vec[None, :], qarr,
+                                           device=device)[0]
+        out.update(family="moments", count=mo_count,
+                   sum=float(mo_vec[mo.IDX_SUM]),
+                   min=float(mo_vec[mo.IDX_MIN]),
+                   max=float(mo_vec[mo.IDX_MAX]))
+        out["quantiles"] = {repr(float(p)): float(x)
+                            for p, x in zip(qarr, quants)}
+        out["payload"] = {"family": "moments",
+                          "k": mo.k_from_len(len(mo_vec)),
+                          "vector": [float(x) for x in mo_vec]}
+    elif cc_count > 0:
+        quants = cs.quantiles_from_vectors(cc_vec[None, :], qarr)[0]
+        out.update(family="compactor", count=cc_count,
+                   sum=float(cc_vec[cs.IDX_SUM]),
+                   min=float(cc_vec[cs.IDX_MIN]),
+                   max=float(cc_vec[cs.IDX_MAX]))
+        out["quantiles"] = {repr(float(p)): float(x)
+                            for p, x in zip(qarr, quants)}
+        out["payload"] = {"family": "compactor",
+                          "vector": [float(x) for x in cc_vec]}
+    return out
+
+
+def merge_range_responses(responses: list[dict], qs,
+                          compression: float = 100.0,
+                          device=None) -> dict:
+    """Merge tier range answers bin by bin: upstream bins align on
+    their [t_start, t_end) bounds (every upstream answered the same
+    validated spec, so the bin grid is shared), and each aligned
+    bucket of bins runs through the same self-describing payload codec
+    as the point merge (merge_responses per bin).  Coverage stays
+    conservative: a bin's covered span is the union the upstreams
+    report, `partial`/`fresh`/staleness merge exactly like the point
+    form."""
+    by_bin: dict = {}
+    for r in responses:
+        for b in r.get("series") or ():
+            kb = (round(float(b["t_start"]), 6),
+                  round(float(b["t_end"]), 6))
+            by_bin.setdefault(kb, []).append(b)
+    series = []
+    for kb in sorted(by_bin):
+        bl = by_bin[kb]
+        pseudo = [{"name": "", "payload": b.get("payload"),
+                   "mixed_families": b.get("mixed_families"),
+                   "slots_fused": None, "partial": False,
+                   "fresh": True, "staleness_ms": None} for b in bl]
+        m = merge_responses(pseudo, qs, compression, device)
+        froms = [b["covered_from_unix"] for b in bl
+                 if b.get("covered_from_unix") is not None]
+        tos = [b["covered_to_unix"] for b in bl
+               if b.get("covered_to_unix") is not None]
+        series.append({
+            "t_start": kb[0], "t_end": kb[1],
+            "source": "merged",
+            "coverage_s": max((b.get("coverage_s") or 0.0
+                               for b in bl), default=0.0),
+            "covered_from_unix": min(froms) if froms else None,
+            "covered_to_unix": max(tos) if tos else None,
+            "family": m["family"], "count": m["count"],
+            "sum": m["sum"], "min": m["min"], "max": m["max"],
+            "mixed_families": m["mixed_families"],
+            "quantiles": m["quantiles"], "payload": m["payload"]})
+    first = responses[0] if responses else {}
+    tos = [b["covered_to_unix"] for b in series
+           if b["covered_to_unix"] is not None]
+    return {
+        "name": first.get("name", ""),
+        "tags": first.get("tags", []),
+        "range": True,
+        "since": first.get("since"), "until": first.get("until"),
+        "step": first.get("step"), "bins": len(series),
+        "series": series,
+        "sources": sorted({s for r in responses
+                           for s in (r.get("sources") or ())}),
+        "covered_from_unix": min(
+            (b["covered_from_unix"] for b in series
+             if b["covered_from_unix"] is not None), default=None),
+        "covered_to_unix": max(tos) if tos else None,
+        "partial": any(r.get("partial") for r in responses),
+        "fresh": bool(responses) and all(r.get("fresh")
+                                         for r in responses),
+        "staleness_ms": max(
+            (r["staleness_ms"] for r in responses
+             if r.get("staleness_ms") is not None), default=None),
+    }
+
+
+def merge_group_responses(responses: list[dict], qs,
+                          compression: float = 100.0,
+                          top: Optional[int] = None,
+                          by: Optional[str] = None,
+                          device=None) -> dict:
+    """Merge tier group-by /query answers: bucket every upstream's
+    group entries by canonical group key, run each bucket through the
+    same self-describing payload codec as the single-key merge
+    (merge_responses per group), then re-rank for ``top=K&by=`` over
+    the MERGED stats — top-k must apply after the merge, since a group
+    inside one tier's top-k can fall out of (or into) the global top-k
+    once the other tiers' mass lands.  The accounted ``other`` rows
+    merge the same way, and coverage metadata stays conservative."""
+    mode, rank_p = parse_rank_by(by)
+    qeval = [float(x) for x in qs]
+    if mode == "quantile" and rank_p not in qeval:
+        qeval.append(rank_p)
+
+    def _pseudo(r, g):
+        return {"name": r.get("name", ""),
+                "payload": g.get("payload"),
+                "mixed_families": g.get("mixed_families"),
+                "slots_fused": r.get("slots_fused"),
+                "partial": r.get("partial"),
+                "fresh": r.get("fresh"),
+                "staleness_ms": r.get("staleness_ms")}
+
+    buckets: dict = {}
+    others: list[dict] = []
+    groups_total = 0
+    launch = 0
+    for r in responses:
+        groups_total += int(r.get("groups_total") or 0)
+        launch = max(launch, int(r.get("cube_groups_per_launch") or 0))
+        for g in r.get("groups") or ():
+            buckets.setdefault(g["key"], []).append(_pseudo(r, g))
+        if r.get("other"):
+            others.append(_pseudo(r, r["other"]))
+
+    entries = []
+    for gkey, pseudo in buckets.items():
+        m = merge_responses(pseudo, qeval, compression, device)
+        if m["count"] <= 0:
+            continue
+        entries.append({
+            "key": gkey, "group": cb.group_of(gkey.split(",")),
+            "family": m["family"], "count": m["count"],
+            "sum": m["sum"], "min": m["min"], "max": m["max"],
+            "quantiles": m["quantiles"], "payload": m["payload"],
+            "mixed_families": m["mixed_families"]})
+    # proxies rank with seed 0: the scatter-gather answer must not
+    # depend on which member's cube seed the proxy happens to know
+    entries = rank_groups(entries, mode, rank_p, 0, top)
+
+    other = None
+    if others:
+        m = merge_responses(others, qeval, compression, device)
+        if m["count"] > 0:
+            other = {"family": m["family"], "count": m["count"],
+                     "sum": m["sum"], "min": m["min"], "max": m["max"],
+                     "quantiles": m["quantiles"],
+                     "payload": m["payload"]}
+
+    first = responses[0] if responses else {}
+    return {
+        "name": first.get("name", ""),
+        "group_by": first.get("group_by") or [],
+        "coarsened": any(r.get("coarsened") for r in responses),
+        "groups": entries, "groups_total": groups_total,
+        "other": other, "top": top, "by": by,
+        "cube_groups_per_launch": launch,
+        "slots_fused": sum(r.get("slots_fused") or 0
+                           for r in responses),
+        "partial": any(r.get("partial") for r in responses),
+        "fresh": bool(responses) and all(r.get("fresh")
+                                         for r in responses),
+        "staleness_ms": max(
+            (r["staleness_ms"] for r in responses
+             if r.get("staleness_ms") is not None), default=None),
+    }
