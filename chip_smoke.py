@@ -21,7 +21,13 @@ meshed 100k-key global flush (on a one-card mesh, and on 2 x 2 and
 2 x 2 one-card mesh beside the unmeshed one, and times them; then one
 interval of the global 100k x 64 shape over loopback UDP through the
 native ingest engine's C++ readers (`veneur_tpu_torch/ingest/`), its
-dense build through the native fill beside the numpy builder; then the
+dense build through the native fill beside the numpy builder; then crash
+durability at full width (a global's checkpoint, crash and restore
+against an uncrashed twin, the stale-marker skip; a local's 100k-digest
+forward spilled to the durable spool, the local crashed and revived,
+the spool replayed into a global that came up late; the per-tenant key
+budget over 100k keys of 25 tenants through the native UDP readers,
+against the CPU); then the
 command line (`veneur_tpu_torch/cli/veneur.py`): in this process, two
 UDP intervals through the native readers cut by POST /flush and by
 SIGTERM, the first again through the Python readers
@@ -3681,6 +3687,7 @@ def grpc_cell(seed=12, n_keys=100_000, per=64, budget_s=60.0):
         require(got == want, "the global over gRPC differs from the "
                 "in-process import: " + str([
                     (g, w) for g, w in zip(got, want) if g != w][:4]))
+        GRPC_WARM.update(flush=got, shape=(seed, n_keys, per))
         timed, last = [], 0.0
         while not timed or time.perf_counter() - t_cell + last < budget_s:
             t0 = time.perf_counter()
@@ -5330,6 +5337,604 @@ def phase_native_ingest(seed=14, n_keys=100_000, per=64) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# Crash durability (core/checkpoint.py, forward/spool.py) and the
+# cardinality guard (core/cardinality.py) at full width
+# ---------------------------------------------------------------------------
+
+# the gRPC cell's warm-up global flush, (name, value) sorted: the spool
+# cell replays the same interval and must flush these bits
+GRPC_WARM: dict = {}
+
+
+def _metric_view(metrics) -> list:
+    """A flush's metrics as sorted (name, tags, type, value), the form
+    two flushes are held bitwise in."""
+    return sorted((m.name, tuple(m.tags), m.type, m.value) for m in metrics)
+
+
+def _first_diff(got, want) -> str:
+    return str([(g, w) for g, w in zip(got, want) if g != w][:4]
+               or (len(got), len(want)))
+
+
+def _launch_delta(before: dict) -> dict:
+    return {k: n - before[k] for k, n in _read_launches().items()
+            if n != before[k]}
+
+
+def durability_checkpoint(d, seed=17, n_digests=100_000, centroids=64,
+                          n_counters=10_000, n_sets=1_000, members=100,
+                          fresh_keys=10_000, fresh_per=16) -> dict:
+    """A global with `checkpoint_dir`: `n_digests` imported t-digests of
+    `centroids` centroids, `n_counters` counters and `n_sets` sets of
+    `members` members (DogStatsD lines), then a mid-interval remainder
+    of fresh samples (`fresh_per` each on `fresh_keys` keys, staged in
+    bulk).  checkpoint_now(), crash(); a fresh server on the directory
+    restores, and its flush (B1) is bitwise that of a twin that took the
+    same data and never crashed: every percentile, count and set
+    estimate.  Then the stale-marker case on the restored server:
+    checkpoint, flush, crash; the next boot skips the arenas and its
+    flush emits none of the delivered keys."""
+    import torch
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.samplers import samplers as sm
+    from veneur_tpu_torch.samplers.metric_key import MetricKey, MetricScope
+    from veneur_tpu_torch.sinks.simple import ChannelMetricSink
+
+    rng = np.random.default_rng(seed)
+    means = np.sort(rng.integers(0, 5000, (n_digests, centroids)),
+                    axis=1).astype(np.float64)
+    wts = rng.integers(1, 50, (n_digests, centroids)).astype(np.float64)
+    fms = [sm.ForwardMetric(
+        name=f"ck.h{i}", tags=["az:a"], kind="histogram", scope=0,
+        digest_means=means[i].tolist(), digest_weights=wts[i].tolist(),
+        digest_min=float(means[i, 0]), digest_max=float(means[i, -1]),
+        digest_rsum=float((wts[i] / np.maximum(means[i], 1.0)).sum()))
+        for i in range(n_digests)]
+    lines = [b"ck.c%d:%d|c" % (i, v) for i, v in
+             enumerate(rng.integers(1, 100, n_counters).tolist())]
+    for s in range(n_sets):
+        lines += [b"ck.s%d:m%d|s" % (s, v)
+                  for v in rng.integers(0, 10 * members, members).tolist()]
+    dgrams = _datagrams(lines)
+    fresh_vals = rng.integers(0, 5000, fresh_keys * fresh_per).astype(
+        np.float64)
+    tail = _datagrams([b"ck.c%d:1|c" % i for i in range(0, n_counters, 7)])
+
+    def boot(path, sink):
+        os.makedirs(path, exist_ok=True)
+        srv = Server(Config(interval=3600.0, percentiles=PERCENTILES,
+                            aggregates=CLI_AGGS, hostname="ck-global",
+                            checkpoint_dir=path,
+                            arena_initial_capacity=n_digests + fresh_keys),
+                     extra_metric_sinks=[sink], device=DEVICE)
+        srv.start()
+        return srv
+
+    def feed(srv):
+        t0 = time.perf_counter()
+        ok, failed = srv.aggregator.import_metrics(fms)
+        require((ok, failed) == (n_digests, 0), (ok, failed))
+        for dg in dgrams:
+            srv.process_packet_buffer(dg)
+        agg = srv.aggregator
+        rows = np.asarray([agg.digests.row_for(
+            MetricKey(f"ck.f{i}", sm.TYPE_HISTOGRAM, ""), MetricScope.MIXED,
+            []) for i in range(fresh_keys)], np.int64)
+        with agg.lock:
+            agg.digests.sample_batch(np.repeat(rows, fresh_per), fresh_vals,
+                                     np.ones(len(fresh_vals)))
+            agg.processed += len(fresh_vals)
+        return time.perf_counter() - t0
+
+    twin_sink, a_sink = ChannelMetricSink(), ChannelMetricSink()
+    twin = boot(os.path.join(d, "twin"), twin_sink)
+    a = boot(os.path.join(d, "ckpt"), a_sink)
+    try:
+        feed_s = feed(a)
+        feed(twin)
+        require(a.checkpoint_now(), "the checkpoint write failed")
+        st = dict(a.checkpoint_stats)
+    finally:
+        a.crash()
+    b_sink = ChannelMetricSink()
+    t0 = time.perf_counter()
+    b = boot(os.path.join(d, "ckpt"), b_sink)
+    boot_s = time.perf_counter() - t0
+    try:
+        require(b.checkpoint_stats["restores"] == 1 and b.flush_count == 0,
+                f"restore: {b.checkpoint_stats}")
+        for srv in (b, twin):
+            for dg in tail:
+                srv.process_packet_buffer(dg)
+        # the restored cut, checkpointed again before the flush that
+        # delivers it: the stale-marker case's checkpoint
+        require(b.checkpoint_now(), "the second checkpoint failed")
+        st2 = dict(b.checkpoint_stats)
+        l0 = _read_launches()
+        t0 = time.perf_counter()
+        b.flush()
+        torch.cuda.synchronize()
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        launches = _launch_delta(l0)
+        seg = dict(b.aggregator.last_flush_segments)
+        twin.flush()
+        got = _metric_view(b_sink.queue.get(timeout=120))
+        want = _metric_view(twin_sink.queue.get(timeout=120))
+    finally:
+        b.crash()
+        twin.shutdown()
+    require(len(want) >= (n_digests + fresh_keys) * len(PERCENTILES)
+            + n_counters + n_sets, f"the twin emitted {len(want)} metrics")
+    require(got == want, "the restored flush differs from the uncrashed "
+            "twin's: " + _first_diff(got, want))
+    require(launches.get("weighted_eval", 0) == 1,
+            f"the restored flush launched {launches}")
+    c_sink = ChannelMetricSink()
+    c = boot(os.path.join(d, "ckpt"), c_sink)
+    try:
+        cst = dict(c.checkpoint_stats)
+        require(cst["stale_skips"] == 1 and cst["restores"] == 0
+                and c.flush_count == 1 and not c.aggregator.digests.kdict,
+                f"the stale checkpoint restored: {cst}")
+        c.flush()
+        stale = c_sink.queue.get(timeout=60)
+    finally:
+        c.shutdown()
+    delivered = {g[0] for g in got}
+    require(not [m for m in stale if m.name in delivered],
+            "the stale checkpoint's keys were emitted again")
+    out = {"digests": n_digests, "centroids": centroids,
+           "counters": n_counters, "sets": n_sets, "members": members,
+           "fresh_samples": len(fresh_vals), "feed_s": feed_s,
+           "checkpoint_bytes": st["last_bytes"],
+           "checkpoint_ms": st["last_ms"],
+           "capture_ms": st["last_capture_ms"],
+           "checkpoint2_bytes": st2["last_bytes"],
+           "checkpoint2_ms": st2["last_ms"],
+           "checkpoint2_capture_ms": st2["last_capture_ms"],
+           "restore_ms": st2["restore_ms"], "boot_s": boot_s,
+           "flush_ms": flush_ms, "launches": launches,
+           "metrics": len(got), "segments": seg}
+    card_log(
+        f"checkpoint at {n_digests} imported {centroids}-centroid digests, "
+        f"{n_counters} counters, {n_sets} sets of {members}, "
+        f"{len(fresh_vals)} fresh samples: {st['last_bytes']} bytes in "
+        f"{st['last_ms']:.1f} ms, the aggregator lock held "
+        f"{st['last_capture_ms']:.1f} ms of it (sync and capture); crash; "
+        f"the "
+        f"restore {st2['restore_ms']:.1f} ms (boot {boot_s:.2f} s); the "
+        f"restored flush {flush_ms:.1f} ms (B1 {launches}), its {len(got)} "
+        f"metrics bitwise the uncrashed twin's (segments: snapshot "
+        f"{seg['snapshot_s'] * 1e3:.1f} ms, build "
+        f"{seg['build_s'] * 1e3:.1f} ms, kernel "
+        f"{seg.get('kernel_ms', 0.0):.3f} ms, emit "
+        f"{seg['emit_s'] * 1e3:.1f} ms); the restored cut checkpointed "
+        f"again ({st2['last_bytes']} bytes, {st2['last_ms']:.1f} ms), "
+        f"flushed, crashed: the next boot skipped the stale arenas and "
+        f"emitted none of the {len(delivered)} delivered names")
+    return out
+
+
+def _reserve_port() -> socket.socket:
+    """A TCP port held bound (not listening) for a server that starts
+    later: a connect is refused until then, and nothing else can take
+    the port.  SO_REUSEPORT lets the gRPC server, which sets it too,
+    bind beside it."""
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+    s.bind(("127.0.0.1", 0))
+    return s
+
+
+def _late_global(port: int, reserved: socket.socket, sinks, **kw):
+    """Start a port global on the reserved port; if the network stack
+    refuses the second bind, release the reservation and retry."""
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.core.server import Server
+
+    for attempt in range(50):
+        glob = Server(Config(grpc_address=f"127.0.0.1:{port}",
+                             interval=3600.0, percentiles=PERCENTILES,
+                             **kw), extra_metric_sinks=sinks, device=DEVICE)
+        try:
+            glob.start()
+            break
+        except OSError:
+            glob.shutdown()
+            reserved.close()
+            require(attempt < 49, f"port {port} never became free")
+            time.sleep(0.05)
+    reserved.close()
+    return glob
+
+
+def durability_spool(d, seed=12, n_keys=100_000, per=64) -> dict:
+    """The gRPC cell's first interval (its seed and shape: 100,000 keys
+    x 64 samples forwarding 64-centroid digests) from a local with
+    `spool_dir` to a global address that is not up yet.  Every chunk
+    spills and nothing is dropped; the local crashes; a new local on the
+    same spool_dir recovers the records; the global comes up and the
+    replayer delivers them.  The global's flush (B1) is bitwise the gRPC
+    cell's direct forward of the same data; the spool ends with no
+    pending record and no segment file; the dedup ledger merged each
+    chunk once."""
+    import torch
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.core.aggregator import MetricAggregator
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.samplers import samplers as sm
+    from veneur_tpu_torch.samplers.metric_key import MetricKey, MetricScope
+    from veneur_tpu_torch.sinks.simple import ChannelMetricSink
+
+    rng = np.random.default_rng(seed)
+    spool_dir = os.path.join(d, "spool")
+    reserved = _reserve_port()
+    port = reserved.getsockname()[1]
+    # above the interval's forward (134.0 MB in 50 V1 chunks in the gRPC
+    # cell; the default 64 MiB would evict)
+    cfg = dict(forward_address=f"127.0.0.1:{port}", interval=3600.0,
+               percentiles=PERCENTILES, hostname="spool-local",
+               arena_initial_capacity=n_keys, forward_timeout=120.0,
+               forward_max_retries=1, forward_retry_backoff=0.05,
+               forward_deadline_retry_safe=True, spool_dir=spool_dir,
+               spool_max_bytes=1 << 30)
+    a = Server(Config(**cfg), device=DEVICE)
+    a.start()
+    try:
+        digests = a.aggregator.digests
+        rows = np.asarray([digests.row_for(
+            MetricKey(f"grpc.k{i}", sm.TYPE_HISTOGRAM, ""),
+            MetricScope.MIXED, []) for i in range(n_keys)], np.int64)
+        vals = rng.gamma(2.0, 10.0, n_keys * per)
+        wts = np.repeat(rng.integers(1, 50, n_keys), per).astype(np.float64)
+        with a.aggregator.lock:
+            digests.sample_batch(np.repeat(rows, per), vals, wts)
+            digests.touched[rows] = True
+        a.aggregator.sync_staged(min_samples=1)
+        t0 = time.perf_counter()
+        res = a.flush()
+        t1 = time.perf_counter()
+        require(a.wait_forwards(600.0), "the spilling forward never returned")
+        t2 = time.perf_counter()
+        cst, sst = a.forwarder.stats(), a.forwarder.spool_stats()
+    finally:
+        a.crash()
+    require(len(res.forward) == n_keys and cst["spilled"] == n_keys
+            and cst["dropped"] == 0 and sst["spilled_points"] == n_keys
+            and sst["expired"] == 0 and sst["dropped"] == 0,
+            f"spill: client {cst}, spool {sst}")
+    segs = [f for f in os.listdir(spool_dir) if f.endswith(".seg")]
+    sink = ChannelMetricSink()
+    b = Server(Config(**cfg), device=DEVICE)
+    glob = None
+    try:
+        b.start()
+        rst = b.forwarder.spool_stats()
+        require(rst["recovered"] == sst["spilled"]
+                and rst["recovered_points"] == n_keys
+                and rst["torn_records"] == 0 and rst["crc_rejected"] == 0,
+                f"recovery: {rst}")
+        t3 = time.perf_counter()
+        glob = _late_global(port, reserved, [sink], hostname="spool-global",
+                            arena_initial_capacity=n_keys)
+        deadline = time.monotonic() + 600.0
+        while b.forwarder.spool_stats()["pending_records"] > 0:
+            require(time.monotonic() < deadline,
+                    f"replay: {b.forwarder.spool_stats()}")
+            time.sleep(0.01)
+        t4 = time.perf_counter()
+        fst, bst = b.forwarder.spool_stats(), b.forwarder.stats()
+        ded = glob.dedup.stats()
+        imported = glob.grpc_import.imported_count
+        l0 = _read_launches()
+        t5 = time.perf_counter()
+        glob.flush()
+        torch.cuda.synchronize()
+        gflush_ms = (time.perf_counter() - t5) * 1e3
+        launches = _launch_delta(l0)
+        got = sorted((m.name, m.value) for m in sink.queue.get(timeout=120))
+    finally:
+        b.shutdown()
+        if glob is not None:
+            glob.shutdown()
+    left = [f for f in os.listdir(spool_dir) if f.endswith(".seg")]
+    require(fst["replayed"] == sst["spilled"]
+            and fst["replayed_points"] == n_keys and fst["dropped"] == 0
+            and fst["expired"] == 0 and fst["pending_records"] == 0
+            and not left, f"replay: {fst}, segment files left {left}")
+    require(imported == n_keys and ded["duplicates"] == 0
+            and ded["recorded"] == sst["spilled"],
+            f"the global imported {imported}, ledger {ded}")
+    require(launches.get("weighted_eval", 0) == 1,
+            f"the global flush launched {launches}")
+    want = GRPC_WARM.get("flush")
+    against = "the gRPC cell's direct forward of the same interval"
+    if want is None or GRPC_WARM.get("shape") != (seed, n_keys, per):
+        ref = MetricAggregator(percentiles=PERCENTILES, is_local=False,
+                               initial_capacity=n_keys, device=DEVICE)
+        ref.import_metrics(res.forward)
+        want = sorted((m.name, m.value)
+                      for m in ref.flush(is_local=False).metrics)
+        against = "an in-process import of the same forward"
+    require(got == want, f"the replayed global differs from {against}: "
+            + _first_diff(got, want))
+    out = {"keys": n_keys, "per": per, "chunks": sst["spilled"],
+           "segments": len(segs), "spill_bytes": sst["pending_bytes"],
+           "local_flush_ms": (t1 - t0) * 1e3,
+           "spill_ms": (t2 - t1) * 1e3,
+           "replay_ms": (t4 - t3) * 1e3,
+           "replay_bytes": bst["bytes_sent"],
+           "replay_attempts": fst["replay_attempts"],
+           "global_flush_ms": gflush_ms, "launches": launches,
+           "against": against}
+    card_log(
+        f"spool: local {n_keys} x {per} -> a global not up yet: "
+        f"{sst['spilled']} V1 chunks ({n_keys} digests) spilled, "
+        f"{sst['pending_bytes']} bytes in {len(segs)} segment files, "
+        f"{(t2 - t1) * 1e3:.1f} ms from the local flush's return "
+        f"(encode, 2 refused attempts, the spill), none dropped; crash; a "
+        f"new local recovered {rst['recovered']} records; the global came "
+        f"up and the replayer delivered {bst['bytes_sent']} bytes in "
+        f"{(t4 - t3) * 1e3:.1f} ms ({fst['replay_attempts']} attempts); "
+        f"no pending record, no segment file, the ledger recorded "
+        f"{ded['recorded']} chunks, 0 duplicates; the global flush "
+        f"{gflush_ms:.1f} ms, its {len(got)} percentiles bitwise "
+        f"{against}")
+    return out
+
+
+def _guard_lines(rng, tenants, keys, samples, lo, hi, vpl=16):
+    """Multi-value DogStatsD lines (`vpl` values a line) giving keys
+    `lo`..`hi` of each tenant `samples[j]` integer samples; -> (lines,
+    values)."""
+    lines, n = [], 0
+    for t in range(tenants):
+        tag = b"tenant:t%d" % t
+        for j in range(lo, hi):
+            vals = rng.integers(0, 1000, samples[j]).tolist()
+            n += len(vals)
+            for i in range(0, len(vals), vpl):
+                lines.append(b"dg.k%d:%s|h|#%s" % (
+                    j, b":".join(b"%d" % v for v in vals[i:i + vpl]), tag))
+    return lines, n
+
+
+def _ledger(agg) -> dict:
+    """The guard's quota ledger with its lists sorted (a drain resolves
+    ids in engine order, which differs between engines)."""
+    state = agg.cardinality.checkpoint_state()
+    for ts in state["tenants"].values():
+        for part in ("exact", "idle", "candidates"):
+            ts[part] = sorted(ts[part])
+    return state
+
+
+def durability_guard(seed=18, tenants=25, keys=4000, per=64, budget=2000):
+    """`tenants` x `keys` histogram keys (`tenant:<t>`) x `per` integer
+    samples an interval, `cardinality_key_budget` `budget`, over UDP
+    through NATIVE_READERS native readers into a local that forwards to
+    a global over gRPC.  The first interval sends each tenant's first
+    `budget` keys, drains, then the rest, so each tenant's exact set is
+    those keys whatever order the readers take; the second gives the
+    exact keys half and the rolled keys 1.5 times `per` samples, so its
+    cut evicts every exact key.  Each interval is held against a
+    device="cpu" port local fed the same datagrams in the same order
+    through its own engine, and a CPU global importing that local's
+    forward: the local's metrics and the guard's ledger equal, the
+    global's keys, counts and percentiles bitwise (a rollup percentile
+    may differ by the device's pre-reduction of its deep row: counted
+    and held within 1% of the key's span, the hop tolerance)."""
+    import torch
+    from veneur_tpu_torch import ingest
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.core.aggregator import MetricAggregator
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.samplers import samplers as sm
+    from veneur_tpu_torch.sinks.simple import ChannelMetricSink
+
+    rng = np.random.default_rng(seed)
+    gsink, lsink = ChannelMetricSink(), ChannelMetricSink()
+    glob = Server(Config(grpc_address="127.0.0.1:0", interval=3600.0,
+                         percentiles=PERCENTILES, aggregates=CLI_AGGS,
+                         hostname="guard-global",
+                         arena_initial_capacity=tenants * budget + 1024),
+                  extra_metric_sinks=[gsink], device=DEVICE)
+    glob.start()
+    guard = dict(cardinality_key_budget=budget, cardinality_seed=seed)
+    local = Server(Config(
+        statsd_listen_addresses=["udp://127.0.0.1:0"],
+        num_readers=NATIVE_READERS, read_buffer_size_bytes=CLI_RCVBUF,
+        forward_address=f"127.0.0.1:{glob.grpc_import.port}",
+        forward_timeout=120.0, interval=3600.0, percentiles=PERCENTILES,
+        aggregates=CLI_AGGS, hostname="guard-local",
+        arena_initial_capacity=tenants * keys, **guard),
+        extra_metric_sinks=[lsink], device=DEVICE)
+    cpu_local = MetricAggregator(
+        percentiles=PERCENTILES, aggregates=sm.parse_aggregates(CLI_AGGS),
+        is_local=True, initial_capacity=tenants * keys, device="cpu",
+        **guard)
+    cpu_glob = MetricAggregator(
+        percentiles=PERCENTILES, aggregates=sm.parse_aggregates(CLI_AGGS),
+        is_local=False, initial_capacity=tenants * budget + 1024,
+        device="cpu")
+    nat = ingest.NativeIngest(cpu_local)
+    tid = nat.engine.new_thread()
+    intervals = []
+    try:
+        local.start()
+        readers = _readers(local)
+        host, port = local.statsd_addrs[0][1][:2]
+        # a datagram of <= 4,096 bytes takes at most 8 KiB of a socket's
+        # receive buffer; one sender's flow lands on one reader's socket,
+        # and a burst fills at most half of it
+        burst = max(1, local._listeners[0].getsockopt(
+            socket.SOL_SOCKET, socket.SO_RCVBUF) // 16384)
+
+        def send(dgrams, dgram_vals):
+            """Blast the datagrams, each burst once the readers parsed
+            every value before it, and drain; then the same datagrams
+            into the CPU engine, drained.  -> (seconds, bytes)."""
+            base = _lines_in(local)
+            upto = np.cumsum(dgram_vals)
+            t0 = time.perf_counter()
+            for i in range(0, len(dgrams), burst):
+                chunk = dgrams[i:i + burst]
+                require(ingest.blast_udp(host, port, len(chunk), chunk)
+                        == len(chunk), "blast_udp sent short")
+                want = int(upto[i + len(chunk) - 1])
+                deadline = time.monotonic() + 60
+                while _lines_in(local) - base < want:
+                    require(time.monotonic() < deadline,
+                            f"the readers parsed {_lines_in(local) - base}"
+                            f" of {want} values")
+                    time.sleep(0.0001)
+            secs = time.perf_counter() - t0
+            require(_lines_in(local) - base == int(upto[-1]),
+                    f"{_lines_in(local) - base} of {upto[-1]} values")
+            local._drain_native()
+            for dg in dgrams:
+                nat.engine.ingest(tid, dg)
+            nat.drain_into()
+            return secs, sum(len(dg) for dg in dgrams)
+
+        for it in range(2):
+            phases = ([(0, budget), (budget, keys)] if it == 0
+                      else [(0, keys)])
+            samples = ([per] * keys if it == 0
+                       else [per // 2] * budget + [per * 3 // 2]
+                       * (keys - budget))
+            ingest_s = n_vals = n_bytes = 0
+            for lo, hi in phases:
+                lines, n = _guard_lines(rng, tenants, keys, samples, lo, hi)
+                dgrams = _datagrams(lines)
+                dgram_vals = [(dg.count(b":") - dg.count(b"\n") - 1)
+                              for dg in dgrams]
+                require(sum(dgram_vals) == n, "value count of the datagrams")
+                secs, nb = send(dgrams, dgram_vals)
+                ingest_s += secs
+                n_vals += n
+                n_bytes += nb
+            require(_ledger(local.aggregator) == _ledger(cpu_local),
+                    f"interval {it}: the guard's ledger differs from the CPU "
+                    f"port's")
+            imp0 = glob.grpc_import.imported_count
+            l0 = _read_launches()
+            t0 = time.perf_counter()
+            res = local.flush()
+            torch.cuda.synchronize()
+            lflush_ms = (time.perf_counter() - t0) * 1e3
+            l_launch = _launch_delta(l0)
+            deadline = time.monotonic() + 600
+            while glob.grpc_import.imported_count < imp0 + len(res.forward):
+                require(time.monotonic() < deadline, "the guard forward")
+                time.sleep(0.001)
+            require(local.wait_forwards(120.0), "the guard forward")
+            l1 = _read_launches()
+            t1 = time.perf_counter()
+            glob.flush()
+            torch.cuda.synchronize()
+            gflush_ms = (time.perf_counter() - t1) * 1e3
+            g_launch = _launch_delta(l1)
+            cres = cpu_local.flush(is_local=True)
+            ok, failed = cpu_glob.import_metrics(cres.forward)
+            require(failed == 0, f"{failed} CPU imports failed")
+            cgres = cpu_glob.flush(is_local=False)
+            lgot = _metric_view(lsink.queue.get(timeout=120))
+            lwant = _metric_view(cres.metrics)
+            # each key's span, from the local's .min and .max rows
+            ext = {(m[0], m[1]): m[3] for m in lwant
+                   if m[0].endswith((".min", ".max"))}
+            require(lgot == lwant, f"interval {it}: the local differs from "
+                    "the CPU port's: " + _first_diff(lgot, lwant))
+            ggot = {k[:3]: k[3] for k in
+                    _metric_view(gsink.queue.get(timeout=120))}
+            gwant = {k[:3]: k[3] for k in _metric_view(cgres.metrics)}
+            require(set(ggot) == set(gwant),
+                    f"interval {it}: the global's keys differ from the CPU "
+                    f"port's")
+            rolled_diff = worst = 0
+            for k, w in gwant.items():
+                g = ggot[k]
+                if g == w:
+                    continue
+                pct = k[0].endswith("percentile") or k[0].endswith(".median")
+                require("veneur_rollup:true" in k[1] and pct,
+                        f"interval {it}: {k}: {g} on the card, {w} on the "
+                        f"CPU")
+                rolled_diff += 1
+                name = k[0].rsplit(".", 1)[0]
+                span = ext[(name + ".max", k[1])] - ext[(name + ".min", k[1])]
+                worst = max(worst, abs(g - w) / span)
+                require(abs(g - w) <= 0.01 * span,
+                        f"interval {it}: rollup {k}: {g} against {w}")
+            g = local.aggregator.cardinality
+            roll = [f for f in res.forward
+                    if f.name.startswith("veneur.rollup.")]
+            require(len(roll) == tenants
+                    and len(res.forward) == tenants * budget + tenants,
+                    f"interval {it}: forwarded {len(res.forward)}, "
+                    f"{len(roll)} rollups")
+            require(_ledger(local.aggregator) == _ledger(cpu_local)
+                    and g.epoch == it, f"after interval {it}: epoch "
+                    f"{g.epoch}, ledgers equal "
+                    f"{_ledger(local.aggregator) == _ledger(cpu_local)}")
+            intervals.append({
+                "values": n_vals, "bytes": n_bytes, "ingest_s": ingest_s,
+                "values_per_s": n_vals / ingest_s,
+                "local_flush_ms": lflush_ms, "global_flush_ms": gflush_ms,
+                "local_launches": l_launch, "global_launches": g_launch,
+                "forwarded": len(res.forward),
+                "rollup_points": g.rollup_points_total,
+                "keys_evicted": g.keys_evicted_total, "epoch": g.epoch,
+                "global_metrics": len(ggot),
+                "rollup_percentiles_not_bitwise": rolled_diff,
+                "rollup_worst_span_share": worst,
+                "local_segments": dict(
+                    local.aggregator.last_flush_segments)})
+    finally:
+        nat.close()
+        local.shutdown()
+        glob.shutdown()
+    last = intervals[-1]
+    require(last["epoch"] == 1
+            and last["keys_evicted"] - intervals[0]["keys_evicted"]
+            == 2 * tenants * budget,
+            f"the second interval's cut evicted "
+            f"{last['keys_evicted'] - intervals[0]['keys_evicted']}")
+    out = {"tenants": tenants, "keys": tenants * keys, "per": per,
+           "budget": budget, "readers": readers, "intervals": intervals}
+    for it, iv in enumerate(intervals):
+        card_log(
+            f"guard interval {it}: {tenants} tenants x {keys} keys, budget "
+            f"{budget}: {iv['values']} values over UDP ({readers}) in "
+            f"{iv['ingest_s']:.2f} s ({iv['values_per_s']:.0f} values/s); "
+            f"local flush {iv['local_flush_ms']:.1f} ms "
+            f"({iv['local_launches']}), {iv['forwarded']} digests forwarded "
+            f"({tenants} rollups), global flush "
+            f"{iv['global_flush_ms']:.1f} ms ({iv['global_launches']}); "
+            f"rollup points {iv['rollup_points']}, keys evicted "
+            f"{iv['keys_evicted']} (rolled sightings and swaps), epoch "
+            f"{iv['epoch']}; the local's metrics and the ledger equal the "
+            f"CPU port's, the global's {iv['global_metrics']} metrics "
+            f"bitwise but {iv['rollup_percentiles_not_bitwise']} rollup "
+            f"percentiles (worst {iv['rollup_worst_span_share']:.2e} of "
+            f"the span)")
+    return out
+
+
+def phase_durability() -> dict:
+    """Checkpoint and crash, the spool, and the guard at full width."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        return {"checkpoint": durability_checkpoint(d),
+                "spool": durability_spool(d),
+                "guard": durability_guard()}
+
+
 def _compute_apps() -> list[str]:
     smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,"
                           "used_memory", "--format=csv,noheader"],
@@ -5578,6 +6183,16 @@ def main() -> int:
     native = _timed(phase_native_ingest)
     launches = _read_launches()
     card_log(f"flush path launches: {launches}")
+    # crash durability and the guard, counted on their own and added to
+    # the flush path's: their flushes are the same path, restored,
+    # replayed and guarded
+    for mod in _kernel_modules():
+        mod.reset_launches()
+    durability = _timed(phase_durability)
+    durability_launches = _read_launches()
+    card_log(f"durability launches: {durability_launches}")
+    for k, n in durability_launches.items():
+        launches[k] += n
     # the command line, counted on its own and added to the flush path's:
     # its flushes are the same path, driven the way users start it.  It
     # installs the crash hooks, so from here a thread that dies ends the
@@ -5627,7 +6242,9 @@ def main() -> int:
                    "grpc_slice": grpc_slice, "grpc_cell": grpc,
                    "proxy": proxy,
                    "meshed_flushes": meshed, "meshed_b8_b9": b8_b9,
-                   "native_ingest": native, "cli": cli, "phase_s": PHASE_S,
+                   "native_ingest": native, "durability": durability,
+                   "durability_launches": durability_launches,
+                   "cli": cli, "phase_s": PHASE_S,
                    "harness": harness}, f,
                   indent=1)
     log("phase seconds: " + ", ".join(

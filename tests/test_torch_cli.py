@@ -177,16 +177,15 @@ def test_load_config_dict_matches_jax(strict, extra):
 
 
 @pytest.mark.parametrize("option,text,env,kwargs", [
-    ("checkpoint_dir", "checkpoint_dir: ckpt", {"VENEUR_CHECKPOINTDIR":
-                                                "ckpt"},
-     {"checkpoint_dir": "ckpt"}),
+    ("egress_spool_dir", "egress_spool_dir: egress",
+     {"VENEUR_EGRESSSPOOLDIR": "egress"}, {"egress_spool_dir": "egress"}),
     ("stats_address", "stats_address: 127.0.0.1:8126",
      {"VENEUR_STATS_ADDRESS": "127.0.0.1:8126"},
      {"stats_address": "127.0.0.1:8126"}),
     ("egress_max_retries", "egress_max_retries: 5",
      {"VENEUR_EGRESSMAXRETRIES": "5"}, {"egress_max_retries": 5}),
-    ("checkpoint_interval", "checkpoint_interval: 60s",
-     {"VENEUR_CHECKPOINTINTERVAL": "1m"}, {"checkpoint_interval": 60.0}),
+    ("retention_max_age", "retention_max_age: 60s",
+     {"VENEUR_RETENTIONMAXAGE": "1m"}, {"retention_max_age": 60.0}),
     ("sentry_dsn", "sentry_dsn: https://k@sentry.example/1",
      {"VENEUR_SENTRYDSN": "https://k@sentry.example/1"},
      {"sentry_dsn": "https://k@sentry.example/1"}),
@@ -225,7 +224,7 @@ def test_native_ingest_passes_only_when_false(tmp_path, text, env, native):
     """native_ingest (the native ingest engine, served since it was
     ported) loads from the file and from either override as the JAX
     package loads it; an option still outside the port refuses from
-    both (the cardinality guard)."""
+    both (device-resident arenas, ROADMAP A12)."""
     path = tmp_path / "cfg.yaml"
     path.write_text(text + "\n")
     for strict in (True, False):
@@ -233,10 +232,10 @@ def test_native_ingest_passes_only_when_false(tmp_path, text, env, native):
         _assert_same_fields(tcfg, jcfg)
         assert tcfg.native_ingest is native
         with pytest.raises(NotImplementedError,
-                           match="cardinality_key_budget"):
+                           match="flush_resident_arenas"):
             tconfig.read_config(
                 str(path), strict=strict,
-                environ={**env, "VENEUR_CARDINALITYKEYBUDGET": "10"})
+                environ={**env, "VENEUR_FLUSHRESIDENTARENAS": "true"})
     assert tconfig.Config(native_ingest=False).native_ingest is False
 
 
@@ -269,12 +268,12 @@ def _strip_until_it_loads(text: str, strict: bool) -> tuple[str, list]:
 @pytest.mark.parametrize("strict", [True, False])
 @pytest.mark.parametrize("name,expect", [
     ("example.yaml", {"grpc_listen_addresses", "ssf_listen_addresses",
-                      "stats_address", "checkpoint_interval",
+                      "stats_address", "diagnostics_metrics_enabled",
                       "flush_watchdog_missed_flushes", "tags_exclude",
                       "enable_metric_sink_routing", "span_sinks",
                       "sources", "metric_sink_routing"}),
     ("example_host.yaml", {"ssf_listen_addresses", "stats_address",
-                           "checkpoint_interval"})])
+                           "flush_watchdog_missed_flushes"})])
 def test_example_configs_refuse_then_match_jax_once_stripped(
         tmp_path, strict, name, expect):
     with open(os.path.join(REPO, name)) as f:
@@ -578,9 +577,16 @@ def test_gated_http_routes(on):
         assert code == (200 if on else 404)
         if on:
             assert json.loads(got) == {"flush_count": 1}
-        for path, method in (("/checkpoint", "POST"), ("/debug/vars", "GET"),
+        for path, method in (("/debug/trace", "GET"), ("/debug/vars", "GET"),
                              ("/config/json", "POST")):
             assert _http(port, path, method)[0] == 404
+        # POST /checkpoint is gated as POST /flush; without a
+        # checkpoint_dir the write fails and answers 500, as in the JAX
+        # package
+        code, got = _http(port, "/checkpoint", "POST")
+        assert code == (500 if on else 404)
+        if on:
+            assert json.loads(got) == {"ok": False, "writes": 0}
         code, got = _http(port, "/quitquitquit", "POST")
         assert (code, got) == ((200, b"terminating\n") if on
                                else (404, b"not found\n"))

@@ -815,7 +815,8 @@ def test_config_has_every_jax_field_served_or_refused():
     port = {f.name: f for f in dataclasses.fields(tconfig.Config)}
     jax_fields = dataclasses.fields(jconfig.Config)
     assert "native_ingest" not in tconfig.UNSUPPORTED
-    assert "cardinality_key_budget" in tconfig.UNSUPPORTED
+    assert "cardinality_key_budget" not in tconfig.UNSUPPORTED
+    assert "retention_tiers" in tconfig.UNSUPPORTED
     for f in jax_fields:
         assert f.name in port, f.name
         assert _default(port[f.name]) == _default(f), f.name

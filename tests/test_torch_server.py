@@ -528,20 +528,26 @@ def test_unique_timeseries_count_matches_jax(is_local):
 
 def test_restore_refuses_unported_families():
     """A cut holding the state of a feature still unported (the
-    cardinality guard's quota ledger, the retention tiers) raises before
-    anything restores."""
-    for feature, kw in (
-            ("cardinality", {"cardinality_key_budget": 100}),
-            ("retention", {"retention_tiers": [{"seconds": 60.0,
-                                                "buckets": 10}]})):
+    retention tiers, ROADMAP A14) raises before anything restores: alone,
+    and beside the cardinality guard's quota ledger, which a port
+    aggregator with a guard would restore (neither the arenas nor the
+    ledger restore)."""
+    tiers = {"retention_tiers": [{"seconds": 60.0, "buckets": 10}]}
+    for feature, kw, port_kw in (
+            ("retention", {**tiers, "cardinality_key_budget": 100},
+             {"cardinality_key_budget": 100}),
+            ("retention", tiers, {})):
         src = JAggregator(percentiles=PCTS, **kw)
         src.process_metric(_one_histogram())
         meta, arrays = src.checkpoint_state()
         assert feature in meta
-        port = MetricAggregator(percentiles=PCTS, device="cpu")
+        port = MetricAggregator(percentiles=PCTS, device="cpu", **port_kw)
         with pytest.raises(NotImplementedError, match=feature):
             port.restore_state(meta, arrays)
         assert not port.digests.kdict and not port.compactors.kdict
+        if port.cardinality is not None:
+            assert "cardinality" in meta
+            assert port.cardinality.tenants == {}
 
 
 def _one_histogram():
@@ -554,8 +560,9 @@ def _one_histogram():
 @pytest.mark.parametrize("option", [
     {"distributed_coordinator": "127.0.0.1:1"}, {"digest_float64": True},
     {"retention_tiers": [{"step": "1m", "slots": 60}]},
-    {"cardinality_key_budget": 100},
-    {"checkpoint_dir": "ckpt"}, {"spool_dir": "spool"},
+    {"tags_exclude": ["host"]},
+    {"sentry_dsn": "https://k@sentry.example/1"},
+    {"retention_max_age": 60.0},
     {"egress_spool_dir": "egress"}, {"flush_resident_arenas": True},
     {"grpc_listen_addresses": ["127.0.0.1:0"]}])
 def test_config_refuses_options_outside_the_port(option):
@@ -566,22 +573,24 @@ def test_config_refuses_options_outside_the_port(option):
 def test_config_has_no_native_ingest_switch():
     """The native ingest switch is served now, on by default as in the
     JAX package, with its tuning options; an option still outside the
-    port (the cardinality guard) refuses."""
+    port (device-resident arenas, ROADMAP A12) refuses."""
     assert tconfig.Config().native_ingest is True
     assert jconfig.Config().native_ingest is True
     cfg = tconfig.Config(native_ingest=False, ingest_backend="recvmmsg",
                          ingest_reader_shards=2, intern_gc_threshold=10)
     assert (cfg.native_ingest, cfg.ingest_backend) == (False, "recvmmsg")
-    with pytest.raises(NotImplementedError, match="cardinality_key_budget"):
-        tconfig.Config(cardinality_key_budget=10)
+    with pytest.raises(NotImplementedError, match="flush_resident_arenas"):
+        tconfig.Config(flush_resident_arenas=True)
 
 
 def test_local_tier_needs_an_in_process_forwarder():
-    """A local tier forwards over gRPC without a callable now; a
-    forward that asks for the spool or TLS is still refused."""
-    with pytest.raises(NotImplementedError, match="spool"):
+    """A local tier forwards over gRPC without a callable now, with the
+    durable spool too; a forward that asks for TLS (ROADMAP A15) is
+    still refused, by its key or by its CA."""
+    with pytest.raises(NotImplementedError, match="TLS"):
         Server(tconfig.Config(forward_address="127.0.0.1:8128",
-                              spool_dir="spool"), device="cpu")
+                              tls_authority_certificate="ca.pem"),
+               device="cpu")
     with pytest.raises(NotImplementedError, match="TLS"):
         Server(tconfig.Config(forward_address="127.0.0.1:8128",
                               tls_certificate="cert.pem"), device="cpu")

@@ -73,6 +73,31 @@ class Config:
     forward_deadline_retry_safe: bool = False
     # chunk identities a global's dedup ledger keeps per sender
     spool_dedup_window: int = 4096
+    # the durable forward spool (forward/spool.py): with spool_dir, a
+    # local's provably undelivered V1 chunks spill to segment files
+    # when the retries are exhausted and a replayer re-delivers them
+    # under their recorded identities; bounded by spool_max_bytes and
+    # spool_max_age (visibly accounted expiry)
+    spool_dir: str = ""
+    spool_max_bytes: int = 64 * 1024 * 1024
+    spool_max_age: float = 600.0
+    spool_fsync: str = "rotate"          # always | rotate | never
+    spool_replay_interval: float = 0.5
+    spool_segment_max_bytes: int = 4 * 1024 * 1024
+    # crash checkpoints (core/checkpoint.py): with checkpoint_dir, the
+    # server restores at start, checkpoints every checkpoint_interval
+    # (0: only at shutdown, POST /checkpoint or checkpoint_now) and
+    # stamps a flush marker after each flush
+    checkpoint_dir: str = ""
+    checkpoint_interval: float = 0.0
+    # the per-tenant key budget (core/cardinality.py): 0 is off; keys
+    # carrying `<cardinality_tenant_tag>:<t>` count against tenant t's
+    # budget, and an over-budget tail folds into rollup keys whose
+    # histogram family is cardinality_rollup_family
+    cardinality_key_budget: int = 0
+    cardinality_tenant_tag: str = "tenant"
+    cardinality_seed: int = 0
+    cardinality_rollup_family: str = "tdigest"
 
     # aggregation
     interval: float = 10.0
@@ -188,12 +213,6 @@ class Config:
     grpc_listen_addresses: list[str] = field(default_factory=list)
     ssf_listen_addresses: list[str] = field(default_factory=list)
     stats_address: str = ""
-    spool_dir: str = ""
-    spool_max_bytes: int = 64 * 1024 * 1024
-    spool_max_age: float = 600.0
-    spool_fsync: str = "rotate"
-    spool_replay_interval: float = 0.5
-    spool_segment_max_bytes: int = 4 * 1024 * 1024
     egress_queue_depth: int = 128
     egress_max_retries: int = 2
     egress_retry_backoff: float = 0.05
@@ -204,16 +223,10 @@ class Config:
     egress_spool_max_bytes: int = 64 * 1024 * 1024
     egress_spool_max_age: float = 600.0
     egress_spool_replay_interval: float = 0.5
-    checkpoint_dir: str = ""
-    checkpoint_interval: float = 0.0
     retention_tiers: list = field(default_factory=list)
     retention_dir: str = ""
     retention_max_bytes: int = 256 * 1024 * 1024
     retention_max_age: float = 0.0
-    cardinality_key_budget: int = 0
-    cardinality_tenant_tag: str = "tenant"
-    cardinality_seed: int = 0
-    cardinality_rollup_family: str = "tdigest"
     distributed_coordinator: str = ""
     distributed_num_processes: int = 0
     distributed_process_id: int = -1
@@ -291,6 +304,11 @@ class Config:
                 "(the meshed flush program is f32-native); drop one")
         fams = parse_family_rules(self.sketch_family_default,
                                   self.sketch_family_rules)
+        if self.cardinality_rollup_family not in SKETCH_FAMILIES:
+            raise ValueError(
+                f"unknown sketch family "
+                f"{self.cardinality_rollup_family!r} "
+                "(tdigest | moments | compactor)")
         if not 2 <= self.sketch_moments_k <= 16:
             raise ValueError(
                 f"sketch_moments_k {self.sketch_moments_k} out of range "
@@ -306,8 +324,12 @@ class Config:
                 f"sketch_compactor_levels {lv} out of range [4, 32] "
                 "(or 0 for the built-in default)")
         if self.mesh_devices:
-            check_mesh_families({self.sketch_family_default}
-                                | {f for _, _, f in fams})
+            # the families in play: the default, the rules', and the
+            # rollup family while the guard is on
+            check_mesh_families(
+                {self.sketch_family_default} | {f for _, _, f in fams}
+                | ({self.cardinality_rollup_family}
+                   if self.cardinality_key_budget > 0 else set()))
 
         # the JAX package's clamps and boot-time cube validation
         if self.forward_timeout < 0:
@@ -436,23 +458,15 @@ UNSUPPORTED = {
     "grpc_listen_addresses": "gRPC ingest listeners",
     "ssf_listen_addresses": _SPANS,
     "stats_address": "self-telemetry",
-    **dict.fromkeys(("spool_dir", "spool_max_bytes", "spool_max_age",
-                     "spool_fsync", "spool_replay_interval",
-                     "spool_segment_max_bytes"), "the forward spool"),
     **dict.fromkeys(("egress_queue_depth", "egress_max_retries",
                      "egress_retry_backoff", "egress_retry_seed",
                      "egress_breaker_threshold", "egress_breaker_reset",
                      "egress_spool_dir", "egress_spool_max_bytes",
                      "egress_spool_max_age",
                      "egress_spool_replay_interval"), "the egress plane"),
-    "checkpoint_dir": "checkpoint files",
-    "checkpoint_interval": "checkpoint files",
     **dict.fromkeys(("retention_tiers", "retention_dir",
                      "retention_max_bytes", "retention_max_age"),
                     "multi-resolution retention"),
-    **dict.fromkeys(("cardinality_key_budget", "cardinality_tenant_tag",
-                     "cardinality_seed", "cardinality_rollup_family"),
-                    "the cardinality guard"),
     **dict.fromkeys(("distributed_coordinator", "distributed_num_processes",
                      "distributed_process_id"), "multi-host meshes"),
     "digest_float64": "float64 digest evaluation",

@@ -20,6 +20,13 @@ flush folds the interval into the ladders with B6 and reads quantiles
 off them, `ops/compactor_eval.py`); an imported moments or compactor
 vector merges into its family's arena whatever the rules say.
 
+Cardinality guard (`core/cardinality.py`): with
+`cardinality_key_budget`, every tenanted key of the ingest and import
+edges resolves through the guard before its family is chosen; an
+over-budget tenant's tail lands in its rollup key (routed by
+`cardinality_rollup_family`), and each flush's cut runs the guard's
+eviction pass, releasing evicted rows, before the cube maintainer's.
+
 Group-by cubes (`cubes/`): with `cube_dimensions`, each histogram/timer
 sample also lands in its cube groups' rows (ordinary keys of the arena
 its family picks); the maintainer's promotion pass runs after each
@@ -58,8 +65,10 @@ import numpy as np
 import torch
 
 from veneur_tpu_torch import ingest, resolve_device
-from veneur_tpu_torch.config import check_mesh_families, parse_family_rules
+from veneur_tpu_torch.config import (SKETCH_FAMILIES, check_mesh_families,
+                                     parse_family_rules)
 from veneur_tpu_torch.core import arena as arena_mod
+from veneur_tpu_torch.core.cardinality import ROLLUP_TAG, CardinalityGuard
 from veneur_tpu_torch.cubes import CubeMaintainer, parse_dimensions
 from veneur_tpu_torch.forward import convert
 from veneur_tpu_torch.ops import compactor_eval as ce
@@ -73,10 +82,6 @@ from veneur_tpu_torch.samplers.metric_key import (MetricKey, MetricScope,
 from veneur_tpu_torch.sketches import hll as hll_mod
 from veneur_tpu_torch.sketches import moments as mo
 from veneur_tpu_torch.sketches import tdigest as td
-
-# a cardinality-rollup identity (core/cardinality.py of the JAX package)
-# routes by the rollup family, which defaults to the t-digest
-ROLLUP_TAG = "veneur_rollup:true"
 
 # ceiling for the [rows, depth] block of one digest_export chunk
 # (elements); keeps the compress intermediates bounded on a large
@@ -135,6 +140,10 @@ class MetricAggregator:
                  cube_dimensions: Optional[list] = None,
                  cube_group_budget: int = 0,
                  cube_seed: int = 0,
+                 cardinality_key_budget: int = 0,
+                 cardinality_tenant_tag: str = "tenant",
+                 cardinality_seed: int = 0,
+                 cardinality_rollup_family: str = "tdigest",
                  mesh=None, ingest_lanes: Optional[int] = None,
                  device=None):
         # ingest_lanes is accepted for configuration compatibility, as
@@ -167,14 +176,26 @@ class MetricAggregator:
             bf16_staging=digest_bf16_staging, mesh=mesh, **kw)
         # sketch-family dispatch: rules match at ingest, first hit wins
         # (name glob or tenant tag); imports route by their payload
+        # (rollup identities of the cardinality guard route by
+        # cardinality_rollup_family)
         self._fam_default = sketch_family_default
         self._fam_rules = parse_family_rules(sketch_family_default,
                                              sketch_family_rules or [])
+        if cardinality_rollup_family not in SKETCH_FAMILIES:
+            raise ValueError(f"unknown sketch family "
+                             f"{cardinality_rollup_family!r} "
+                             "(tdigest | moments | compactor)")
+        self._rollup_family = cardinality_rollup_family
         if mesh is not None:
-            check_mesh_families({sketch_family_default} | {
-                fam for _, _, fam in self._fam_rules})
-        self.family_dispatch = bool(self._fam_rules
-                                    or self._fam_default != "tdigest")
+            check_mesh_families(
+                {sketch_family_default}
+                | {fam for _, _, fam in self._fam_rules}
+                | ({cardinality_rollup_family}
+                   if cardinality_key_budget > 0 else set()))
+        self.family_dispatch = bool(
+            self._fam_rules or self._fam_default != "tdigest"
+            or (cardinality_key_budget > 0
+                and cardinality_rollup_family != "tdigest"))
         self._fam_cache: dict = {}
         # pre-sized only when the rules can route keys here (the ivec
         # plane is f64 and capacity-sized)
@@ -200,6 +221,15 @@ class MetricAggregator:
         self.counters = arena_mod.CounterArena(mesh=mesh, **kw)
         self.gauges = arena_mod.GaugeArena(**kw)
         self.status = arena_mod.StatusArena(**kw)
+        # the per-tenant key budget and tail rollup (None: off).  It
+        # applies at the ingest edge (the Python path and the native
+        # drain) and at the import edge, where a local's rollup keys
+        # arrive as ordinary keys
+        self.cardinality = (
+            CardinalityGuard(cardinality_key_budget,
+                             tenant_tag=cardinality_tenant_tag,
+                             seed=cardinality_seed)
+            if cardinality_key_budget > 0 else None)
         # group-by sketch cubes (cubes/): config-declared dimensions
         # mirror each histogram/timer sample into per-group rollup rows,
         # ordinary arena keys that flush, forward and window like any
@@ -238,21 +268,34 @@ class MetricAggregator:
         # measured segments of the last flush (seconds; kernel_ms from
         # CUDA events on the device)
         self.last_flush_segments: dict = {}
+        # seconds the last checkpoint_state held the lock
+        self.last_capture_s = 0.0
 
     # -- sketch-family dispatch ----------------------------------------------
 
     _FAM_CACHE_CAP = 65536
 
+    def _card_resolve(self, key, scope, tags, n: int = 1):
+        """The cardinality guard at the ingest and import edges: an
+        under-budget (or untenanted) key passes through; an over-budget
+        tenant's tail rewrites to its rollup identity."""
+        g = self.cardinality
+        if g is None:
+            return key, scope, tags
+        rolled = g.resolve(key, scope, tags, n)
+        return (key, scope, tags) if rolled is None else rolled
+
     def _family_of(self, key: MetricKey, tags) -> str:
         """Family of one histogram/timer key: rollup identities take the
-        t-digest, then the first matching rule (name glob / tenant tag),
-        then the default.  Memoized on the key identity (bounded)."""
+        rollup family, then the first matching rule (name glob / tenant
+        tag), then the default.  Memoized on the key identity
+        (bounded)."""
         ck = (key.name, key.joined_tags)
         hit = self._fam_cache.get(ck)
         if hit is not None:
             return hit
         if ROLLUP_TAG in tags:
-            fam = "tdigest"
+            fam = self._rollup_family
         else:
             fam = next((rfam for pattern, tenant, rfam in self._fam_rules
                         if (fnmatch.fnmatchcase(key.name, pattern)
@@ -264,7 +307,9 @@ class MetricAggregator:
         return fam
 
     def _histo_arena(self, key: MetricKey, tags):
-        """The arena a histogram/timer key's raw samples land in."""
+        """The arena a histogram/timer key's raw samples land in (call
+        after _card_resolve, so a rollup identity routes by the rollup
+        family)."""
         if not self.family_dispatch:
             return self.digests
         fam = self._family_of(key, tags)
@@ -294,25 +339,28 @@ class MetricAggregator:
             scope = (MetricScope.GLOBAL_ONLY
                      if m.scope == MetricScope.GLOBAL_ONLY
                      else MetricScope.MIXED)
-            row = self.counters.row_for(m.key, scope, m.tags)
+            key, scope, tags = self._card_resolve(m.key, scope, m.tags)
+            row = self.counters.row_for(key, scope, tags)
             self.counters.sample(row, m.value, m.sample_rate)
         elif t == sm.TYPE_GAUGE:
             scope = (MetricScope.GLOBAL_ONLY
                      if m.scope == MetricScope.GLOBAL_ONLY
                      else MetricScope.MIXED)
-            row = self.gauges.row_for(m.key, scope, m.tags)
+            key, scope, tags = self._card_resolve(m.key, scope, m.tags)
+            row = self.gauges.row_for(key, scope, tags)
             self.gauges.sample(row, m.value)
         elif t in (sm.TYPE_HISTOGRAM, sm.TYPE_TIMER):
-            arena = self._histo_arena(m.key, m.tags)
-            row = arena.row_for(m.key, m.scope, m.tags)
+            key, scope, tags = self._card_resolve(m.key, m.scope, m.tags)
+            arena = self._histo_arena(key, tags)
+            row = arena.row_for(key, scope, tags)
             arena.sample(row, m.value, m.sample_rate)
             if self.cubes is not None:
                 # the sample ALSO lands in each matching group's row
                 # (family by the cube key, so like groups merge
                 # family-coherently across tiers); an over-budget group
                 # lands in the accounted veneur.cube.other row instead
-                for ck, cscope, ctags in self.cubes.rollups(
-                        m.key, m.scope, m.tags):
+                for ck, cscope, ctags in self.cubes.rollups(key, scope,
+                                                            tags):
                     carena = self._histo_arena(ck, ctags)
                     crow = carena.row_for(ck, cscope, ctags)
                     carena.sample(crow, m.value, m.sample_rate)
@@ -320,7 +368,8 @@ class MetricAggregator:
             scope = (MetricScope.LOCAL_ONLY
                      if m.scope == MetricScope.LOCAL_ONLY
                      else MetricScope.MIXED)
-            row = self.sets.row_for(m.key, scope, m.tags)
+            key, scope, tags = self._card_resolve(m.key, scope, m.tags)
+            row = self.sets.row_for(key, scope, tags)
             self.sets.sample(row, str(m.value))
         elif t == sm.TYPE_STATUS:
             row = self.status.row_for(m.key, MetricScope.LOCAL_ONLY, m.tags)
@@ -409,27 +458,33 @@ class MetricAggregator:
     def _merge_locked(self, fm: sm.ForwardMetric, scope: MetricScope,
                       staged) -> None:
         """Route one forwarded metric into its arena (the payload names
-        its sketch family) and merge it."""
+        its sketch family) and merge it, its identity through the
+        cardinality guard first."""
         key = MetricKey(fm.name, fm.kind, ",".join(sorted(fm.tags)))
         if fm.kind == sm.TYPE_COUNTER:
-            row = self.counters.row_for(key, MetricScope.GLOBAL_ONLY,
-                                        fm.tags)
+            key, cls, tags = self._card_resolve(
+                key, MetricScope.GLOBAL_ONLY, fm.tags)
+            row = self.counters.row_for(key, cls, tags)
             self.counters.merge(row, fm.counter_value)
         elif fm.kind == sm.TYPE_GAUGE:
-            row = self.gauges.row_for(key, MetricScope.GLOBAL_ONLY,
-                                      fm.tags)
+            key, cls, tags = self._card_resolve(
+                key, MetricScope.GLOBAL_ONLY, fm.tags)
+            row = self.gauges.row_for(key, cls, tags)
             self.gauges.merge(row, fm.gauge_value)
         elif fm.kind == sm.TYPE_SET:
-            row = self.sets.row_for(key, MetricScope.MIXED, fm.tags)
+            key, cls, tags = self._card_resolve(key, MetricScope.MIXED,
+                                                fm.tags)
+            row = self.sets.row_for(key, cls, tags)
             self.sets.merge(row, fm.hll)
         elif fm.kind in (sm.TYPE_HISTOGRAM, sm.TYPE_TIMER):
             cls = (MetricScope.GLOBAL_ONLY
                    if scope == MetricScope.GLOBAL_ONLY
                    else MetricScope.MIXED)
+            key, cls, tags = self._card_resolve(key, cls, fm.tags)
             if fm.moments is not None:
                 # the payload describes itself: a moments vector
                 # merges into the moments arena whatever the rules
-                row = self.moments.row_for(key, cls, fm.tags)
+                row = self.moments.row_for(key, cls, tags)
                 if staged is None:
                     self.moments.merge_moments(row, fm.moments)
                 else:
@@ -438,10 +493,10 @@ class MetricAggregator:
             elif fm.compactor is not None:
                 # the same payload routing for a ladder: concatenate,
                 # then one host compaction pass
-                row = self.compactors.row_for(key, cls, fm.tags)
+                row = self.compactors.row_for(key, cls, tags)
                 self.compactors.merge_compactor(row, fm.compactor)
             else:
-                row = self.digests.row_for(key, cls, fm.tags)
+                row = self.digests.row_for(key, cls, tags)
                 self.digests.merge_digest(
                     row, fm.digest_means or [],
                     fm.digest_weights or [], fm.digest_min,
@@ -464,13 +519,16 @@ class MetricAggregator:
         """Batched V1 import (`veneur_tpu/core/aggregator.py:609`): one
         lock for the whole MetricList, the protobuf fields read
         directly, counter and gauge rows found through an identity
-        cache (cleared every flush) and merged vectorized; sets,
+        cache (cleared every flush; off while the cardinality guard is
+        armed, since every record must reach the guard for its touch
+        count) and merged vectorized; sets,
         digests, moments vectors and ladders take import_metric's
         routing.  Scope and nil semantics are import_metric's; a metric
         whose `type` contradicts its value oneof is refused.  A refused
         metric fails alone.  Returns (imported, failed)."""
         ok = failed = 0
         cache = self._import_row_cache
+        cached = self.cardinality is None
         legal = self._ONEOF_LEGAL_TYPES
         c_rows: list = []
         c_vals: list = []
@@ -491,15 +549,17 @@ class MetricAggregator:
                         kind = (sm.TYPE_COUNTER if which == "counter"
                                 else sm.TYPE_GAUGE)
                         ck = (pb.name, tuple(pb.tags), kind)
-                        row = cache.get(ck)
+                        row = cache.get(ck) if cached else None
                         if row is None:
                             tags = list(pb.tags)
                             arena = (self.counters if which == "counter"
                                      else self.gauges)
-                            row = cache[ck] = arena.row_for(
+                            row = arena.row_for(*self._card_resolve(
                                 MetricKey(pb.name, kind,
                                           ",".join(sorted(tags))),
-                                MetricScope.GLOBAL_ONLY, tags)
+                                MetricScope.GLOBAL_ONLY, tags))
+                            if cached:
+                                cache[ck] = row
                         if which == "counter":
                             c_rows.append(row)
                             c_vals.append(pb.counter.value)
@@ -537,9 +597,12 @@ class MetricAggregator:
         routing.  Type/oneof agreement, scope and refusals are
         import_pb_batch's.  A payload that fails the wire scan goes to
         import_pb_batch, which imports or raises as for any malformed
-        bytes; an engine that cannot build or load raises.  Returns
-        (imported, failed)."""
-        scan = ingest.import_scan(payload)
+        bytes; an engine that cannot build or load raises.  The scan
+        never materializes tags, which the cardinality guard classifies
+        on, so while the guard is armed every payload takes
+        import_pb_batch.  Returns (imported, failed)."""
+        scan = (ingest.import_scan(payload) if self.cardinality is None
+                else None)
         if scan is None:
             return self.import_pb_batch(
                 forward_pb2.MetricList.FromString(payload).metrics)
@@ -631,9 +694,14 @@ class MetricAggregator:
                  "gauges", "status")
 
     def checkpoint_state(self) -> tuple[dict, dict]:
-        """One coherent cut of every arena (plus unique-ts registers),
-        in the JAX package's (meta, arrays) layout."""
+        """One coherent cut of every arena (plus unique-ts registers and
+        the cardinality guard's quota ledger), in the JAX package's
+        (meta, arrays) layout.  Under the lock it syncs the staging and
+        takes each arena's `checkpoint_capture` (copies only); the
+        per-key rendering runs after the lock is released, so ingest
+        never queues behind it.  `last_capture_s` is the lock's hold."""
         with self.lock:
+            t0 = time.perf_counter()
             self.digests.sync()
             self.moments.sync()
             self.compactors.sync()
@@ -641,29 +709,35 @@ class MetricAggregator:
             meta: dict = {"processed": self.processed,
                           "imported": self.imported, "families": {}}
             arrays: dict = {}
-            for name in self._FAMILIES:
-                fmeta, farr = getattr(self, name).checkpoint_state()
-                meta["families"][name] = fmeta
-                for k, v in farr.items():
-                    arrays[f"{name}/{k}"] = v
+            caps = {name: getattr(self, name).checkpoint_capture()
+                    for name in self._FAMILIES}
             if self.unique_ts is not None:
                 arrays["unique_ts/regs"] = self.unique_ts.regs.copy()
+            if self.cardinality is not None:
+                # bounded by the budget, not by the key space
+                meta["cardinality"] = self.cardinality.checkpoint_state()
+            self.last_capture_s = time.perf_counter() - t0
+        for name, cap in caps.items():
+            fmeta, farr = getattr(self, name).checkpoint_render(cap)
+            meta["families"][name] = fmeta
+            for k, v in farr.items():
+                arrays[f"{name}/{k}"] = v
         return meta, arrays
 
     def restore_state(self, meta: dict, arrays: dict) -> None:
         """Rebuild the arenas from a checkpoint (fresh aggregator): rows,
         registers and staged points restore exactly, so the next flush
         emits what the checkpointed aggregator's next flush would have.
-        Accepts the `checkpoint_state()` of either package; a cut that
-        holds the state of a feature this package lacks (the cardinality
-        guard's quota ledger, retention tiers) raises
-        NotImplementedError before anything restores."""
-        for feature, what in (("cardinality", "the cardinality guard"),
-                              ("retention", "multi-resolution retention")):
-            if feature in meta:
-                raise NotImplementedError(
-                    f"checkpoint holds {feature} state; {what} is not "
-                    "supported here")
+        Accepts the `checkpoint_state()` of either package, with the
+        cardinality guard's ledger when this aggregator has a guard.
+        Every family prechecks first (CheckpointIncompatible before any
+        arena mutates).  A cut that holds retention tiers, which this
+        package lacks, raises NotImplementedError before anything
+        restores."""
+        if "retention" in meta:
+            raise NotImplementedError(
+                "checkpoint holds retention state; multi-resolution "
+                "retention is not supported here")
         with self.lock:
             per_family = {}
             for name in self._FAMILIES:
@@ -684,6 +758,9 @@ class MetricAggregator:
                     and uts.shape == self.unique_ts.regs.shape):
                 np.maximum(self.unique_ts.regs, uts,
                            out=self.unique_ts.regs)
+            if (self.cardinality is not None
+                    and meta.get("cardinality") is not None):
+                self.cardinality.restore_state(meta["cardinality"])
 
     # -- flush ---------------------------------------------------------------
 
@@ -1131,9 +1208,42 @@ class MetricAggregator:
                          (d, drows), (mm, mrows), (cp, prows)):
             ar.reset_rows(rows)
             ar.end_interval()
+        # the guard's eviction pass first, then the cubes' (the JAX
+        # package's order)
+        if self.cardinality is not None:
+            self._cardinality_end_interval()
         if self.cubes is not None:
             self._cube_end_interval()
         return snap
+
+    def _cardinality_end_interval(self) -> None:
+        """The guard's count-ordered eviction pass, after the snapshot
+        copied its rows and the arenas reset: each evicted key's row is
+        released from the arena that actually holds it (a payload-routed
+        import can land a histogram key in the moments or compactor
+        arena whatever the rules say).  A failure aborts the pass with
+        the quota state untouched; idle GC still bounds the rows."""
+        by_type = {sm.TYPE_COUNTER: self.counters,
+                   sm.TYPE_GAUGE: self.gauges, sm.TYPE_SET: self.sets}
+
+        def release(dks):
+            by_arena: dict = {}
+            for dk in dks:
+                arena = by_type.get(dk[0].type) or next(
+                    (a for a in (self.moments, self.compactors,
+                                 self.digests) if dk in a.kdict), None)
+                if arena is not None:       # else never materialized
+                    by_arena.setdefault(id(arena), (arena, []))[1] \
+                        .append(dk)
+            for arena, lst in by_arena.values():
+                arena.release_keys(lst)
+
+        try:
+            self.cardinality.end_interval(release)
+        except Exception as e:   # noqa: BLE001 - retried next interval
+            logging.getLogger("veneur_tpu_torch.aggregator").warning(
+                "cardinality eviction pass aborted (%s); retrying next "
+                "interval", e)
 
     def _cube_end_interval(self) -> None:
         """The cube maintainer's promotion pass, after the snapshot

@@ -211,28 +211,49 @@ class _ArenaBase:
         """(meta, arrays) of the key table + family state (call under the
         aggregator lock, after sync()).  Same keys as the JAX package's
         arenas write."""
+        return self.checkpoint_render(self.checkpoint_capture())
+
+    def checkpoint_capture(self) -> dict:
+        """The lock-held half of a checkpoint (`arena.py:272-292` of the
+        JAX package): copies only (the key table's items, fancy-indexed
+        columns, the family's state arrays), so the ingest path never
+        queues behind the per-key rendering."""
         items = list(self.kdict.items())
         rows = np.fromiter((r for _, r in items), np.int64, len(items))
+        extra: dict = {}
+        self._checkpoint_extra(extra)
+        return {"items": items, "tags": self.tags_col[rows].copy(),
+                "rows": rows, "idle": self.idle[rows].copy(),
+                "touched": self.touched[rows].copy(),
+                "capacity": int(self.capacity),
+                "arrays": self._checkpoint_arrays(), "extra": extra}
+
+    @staticmethod
+    def checkpoint_render(cap: dict) -> tuple[dict, dict]:
+        """The lock-free half: render the captured key table to numpy
+        string and int arrays.  MetricKeys are immutable and a row's
+        tags list is never mutated in place, so the captured references
+        stay coherent after the lock is released."""
+        items = cap["items"]
 
         def strs(lst):
             return (np.asarray(lst, dtype=np.str_) if lst
                     else np.zeros(0, "<U1"))
 
-        arrays = dict(self._checkpoint_arrays())
+        arrays = dict(cap["arrays"])
         arrays.update({
             "key_names": strs([k.name for (k, _), _ in items]),
             "key_types": strs([k.type for (k, _), _ in items]),
             "key_jtags": strs([k.joined_tags for (k, _), _ in items]),
-            "key_tags": strs([",".join(self.tags_col[r] or [])
-                              for r in rows.tolist()]),
+            "key_tags": strs([",".join(t or []) for t in cap["tags"]]),
             "key_scopes": np.asarray([int(s) for (_, s), _ in items],
                                      np.int8),
-            "key_rows": rows,
-            "key_idle": self.idle[rows].copy(),
-            "key_touched": self.touched[rows].copy(),
+            "key_rows": cap["rows"],
+            "key_idle": cap["idle"],
+            "key_touched": cap["touched"],
         })
-        meta = {"capacity": int(self.capacity)}
-        self._checkpoint_extra(meta)
+        meta = {"capacity": cap["capacity"]}
+        meta.update(cap["extra"])
         return meta, arrays
 
     def restore_state(self, meta: dict, arrays: dict) -> None:

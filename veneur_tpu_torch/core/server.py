@@ -24,6 +24,18 @@ forwards (`wait_forwards` waits for them).  `query` is the live query
 plane's engine; `http_api.HttpApi(server, address)` serves it over
 HTTP, started by the caller.
 
+Crash durability (`core/checkpoint.py`, `forward/spool.py`): with
+`checkpoint_dir`, start() restores the last checkpoint before any
+listener, import server or drain thread runs; `checkpoint_now()` writes
+one coherent cut (the engine's staged lines drained first, then the
+aggregator and the dedup ledger inside the ledger's pause gate, then
+the file outside every lock), every `checkpoint_interval` and at
+shutdown; each flush stamps a marker, so a checkpoint older than a
+delivered flush does not restore its arenas.  With `spool_dir`, a
+local's exhausted forwards spill to the durable spool and replay.
+`crash()` is a simulated kill -9: no final flush, no shutdown
+checkpoint, no spool drain.
+
 The aggregation core is the batched MetricAggregator; its t-digest,
 moments and compactor flushes run on `device` (CUDA unless the caller
 names the CPU).  With `mesh_devices` the t-digest, set, counter and
@@ -35,6 +47,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import logging
 import os
 import select
@@ -45,8 +58,11 @@ from typing import Callable, Optional
 
 from veneur_tpu_torch import config as config_mod
 from veneur_tpu_torch import sinks as sink_mod
+from veneur_tpu_torch.core import checkpoint as ckpt_mod
 from veneur_tpu_torch.core.aggregator import MetricAggregator
+from veneur_tpu_torch.core.arena import CheckpointIncompatible
 from veneur_tpu_torch.forward.client import ForwardClient, RetryPolicy
+from veneur_tpu_torch.forward.spool import ForwardSpool
 from veneur_tpu_torch.parallel import mesh as mesh_mod
 from veneur_tpu_torch.query.engine import QueryEngine
 from veneur_tpu_torch.samplers import parser as parser_mod
@@ -111,6 +127,10 @@ class Server:
             cube_dimensions=list(cfg.cube_dimensions),
             cube_group_budget=cfg.cube_group_budget,
             cube_seed=cfg.cube_seed,
+            cardinality_key_budget=cfg.cardinality_key_budget,
+            cardinality_tenant_tag=cfg.cardinality_tenant_tag,
+            cardinality_seed=cfg.cardinality_seed,
+            cardinality_rollup_family=cfg.cardinality_rollup_family,
             mesh=self.mesh,
             ingest_lanes=cfg.ingest_lanes or None,
             device=device)
@@ -123,7 +143,17 @@ class Server:
         if cfg.is_local and forwarder is None:
             # the persistent forward connection (server.go:810-828).
             # At most FORWARD_MAX_IN_FLIGHT forwards run at once, so the
-            # deadline may floor at the reference's default interval
+            # deadline may floor at the reference's default interval.
+            # With spool_dir, exhausted forwards spill to the durable
+            # spool, whose replayer the client starts
+            spool = None
+            if cfg.spool_dir:
+                spool = ForwardSpool(
+                    os.path.expanduser(cfg.spool_dir),
+                    max_bytes=cfg.spool_max_bytes,
+                    max_age_s=cfg.spool_max_age, fsync=cfg.spool_fsync,
+                    segment_max_bytes=cfg.spool_segment_max_bytes,
+                    replay_interval_s=cfg.spool_replay_interval)
             forwarder = ForwardClient(
                 cfg.forward_address,
                 timeout_s=cfg.forward_timeout or max(cfg.interval, 10.0),
@@ -131,7 +161,7 @@ class Server:
                 retry=RetryPolicy(
                     attempts=cfg.forward_max_retries + 1,
                     backoff_base_s=cfg.forward_retry_backoff),
-                source=cfg.hostname,
+                spool=spool, source=cfg.hostname,
                 deadline_retry_safe=cfg.forward_deadline_retry_safe)
         self.forwarder = forwarder
         self._forward_pool = concurrent.futures.ThreadPoolExecutor(
@@ -148,6 +178,22 @@ class Server:
                       if cfg.grpc_address else None)
         self.proto_received: collections.Counter = collections.Counter()
         self._proto_lock = threading.Lock()
+        # crash durability: the checkpoint ledger (the JAX package's
+        # /debug/vars -> checkpoint keys, and the durations of the last
+        # write, its lock hold and the restore), the checkpoint writers'
+        # lock, and crash()'s flag
+        self.checkpoint_stats = {
+            "enabled": bool(cfg.checkpoint_dir),
+            "writes": 0, "restores": 0, "errors": 0,
+            # checkpoints whose arenas a later delivered flush made stale
+            "stale_skips": 0,
+            "last_bytes": 0, "last_unix": 0.0,
+            # age of the restored checkpoint at boot, 0 on a cold start
+            "age_ms": 0.0,
+            "last_ms": 0.0, "last_capture_ms": 0.0, "restore_ms": 0.0,
+        }
+        self._checkpoint_write_lock = threading.Lock()
+        self._crashed = False
         self.metric_sinks = [sink_mod.create_metric_sink(spec, cfg)
                              for spec in cfg.metric_sinks]
         self.metric_sinks.extend(extra_metric_sinks or [])
@@ -242,8 +288,11 @@ class Server:
         ticker (one flush every `interval` seconds).  With native_ingest
         and a UDP listener, the native engine reads UDP (C++ readers)
         and a drainer thread folds its batches in; a failed build or
-        load of the engine raises."""
+        load of the engine raises.  With checkpoint_dir the checkpoint
+        restores first, before anything can race the arena rebuild."""
         cfg = self.config
+        if cfg.checkpoint_dir:
+            self._maybe_restore_checkpoint()
         if cfg.native_ingest and any(
                 parse_listen_addr(a)[0] == "udp"
                 for a in cfg.statsd_listen_addresses):
@@ -268,6 +317,8 @@ class Server:
         if self.native is not None:
             self._spawn(self._native_drain_loop, "ingest-drain")
         self._spawn(self._ticker, "flush-ticker")
+        if cfg.checkpoint_dir and cfg.checkpoint_interval > 0:
+            self._spawn(self._checkpoint_loop, "checkpoint-loop")
 
     def _count_drained(self, batch) -> None:
         """Account a native drain: its datagrams as received over udp,
@@ -454,6 +505,15 @@ class Server:
             if self.is_local and res.forward:
                 self._submit_forward(res.forward)
             self.last_flush = res
+            if self.config.checkpoint_dir:
+                # the flush is delivered: a checkpoint older than this
+                # marker must not restore its arenas
+                try:
+                    ckpt_mod.write_flush_marker(
+                        os.path.expanduser(self.config.checkpoint_dir),
+                        self.flush_count)
+                except OSError as e:
+                    logger.warning("flush marker write failed: %s", e)
             return res
 
     def _submit_forward(self, forward: list) -> None:
@@ -514,6 +574,119 @@ class Server:
                 self.flush()
             except Exception:
                 logger.exception("flush failed")
+
+    # -- crash durability (core/checkpoint.py) -------------------------------
+
+    def _maybe_restore_checkpoint(self) -> None:
+        """Boot-time restore (`server.py:1240-1306` of the JAX package):
+        rebuild the arenas, resume the interval count and refill the
+        dedup ledger from the last committed checkpoint.  A missing or
+        corrupt file is a cold start; so is a checkpoint written under
+        other sketch parameters (prechecked before any arena mutates).
+        A checkpoint older than the last delivered flush restores the
+        count and the ledger but not the arenas.  A restore that fails
+        mid-rebuild raises: no half-restored server runs."""
+        t0 = time.perf_counter()
+        ckpt_dir = os.path.expanduser(self.config.checkpoint_dir)
+        loaded = ckpt_mod.read_checkpoint(ckpt_dir)
+        if loaded is None:
+            return
+        meta, arrays = loaded
+        marker = ckpt_mod.read_flush_marker(ckpt_dir)
+        if (marker is not None and int(marker.get("flush_count", 0))
+                > int(meta.get("flush_count", 0))):
+            # its arenas hold data a later flush delivered, which a
+            # revived sender would re-forward under a fresh boot nonce
+            self.flush_count = int(marker["flush_count"])
+            if self.dedup is not None and meta.get("dedup") is not None:
+                self.dedup.restore(meta["dedup"])
+            self.checkpoint_stats["stale_skips"] += 1
+            logger.warning(
+                "checkpoint (interval %s) predates the last completed "
+                "flush (interval %s): arenas not restored; interval "
+                "count and dedup ledger resumed",
+                meta.get("flush_count"), marker["flush_count"])
+            return
+        try:
+            self.aggregator.restore_state(meta["aggregator"], arrays)
+            self.flush_count = int(meta.get("flush_count", 0))
+            if self.dedup is not None and meta.get("dedup") is not None:
+                self.dedup.restore(meta["dedup"])
+        except CheckpointIncompatible as e:
+            logger.warning("checkpoint incompatible with the current "
+                           "configuration (%s); cold start", e)
+            return
+        except Exception:
+            logger.critical("checkpoint restore failed mid-rebuild; "
+                            "refusing to run half-restored (delete %s "
+                            "to cold-start)", self.config.checkpoint_dir)
+            raise
+        age_ms = max(0.0, (time.time()
+                           - float(meta.get("written_unix", 0.0))) * 1e3)
+        self.checkpoint_stats["restores"] += 1
+        self.checkpoint_stats["age_ms"] = round(age_ms, 1)
+        self.checkpoint_stats["restore_ms"] = (time.perf_counter()
+                                               - t0) * 1e3
+        logger.info("restored checkpoint: interval %d, %d processed / %d "
+                    "imported, %.0f ms old", self.flush_count,
+                    self.aggregator.processed, self.aggregator.imported,
+                    age_ms)
+
+    def checkpoint_now(self) -> bool:
+        """Write one checkpoint (`server.py:1308-1358` of the JAX
+        package): the native engine's staged lines are drained into the
+        aggregator first; then, inside the dedup ledger's pause gate
+        (imports in flight drain and new ones wait), the aggregator's
+        cut and the ledger's snapshot, so a chunk's data and its
+        identity land on the same side; then the atomic write, outside
+        every lock.  Returns False, counted in errors, when the write
+        fails; the previous checkpoint stays live either way."""
+        t0 = time.perf_counter()
+        self._drain_native()
+        with self._checkpoint_write_lock:
+            gate = (self.dedup.paused() if self.dedup is not None
+                    else contextlib.nullcontext())
+            with gate:
+                agg_meta, arrays = self.aggregator.checkpoint_state()
+                meta = {
+                    "aggregator": agg_meta,
+                    "flush_count": self.flush_count,
+                    "hostname": self.config.hostname,
+                    "dedup": (self.dedup.snapshot()
+                              if self.dedup is not None else None),
+                }
+            try:
+                nbytes = ckpt_mod.write_checkpoint(
+                    os.path.expanduser(self.config.checkpoint_dir),
+                    meta, arrays)
+            except Exception as e:   # noqa: BLE001 - counted, reported
+                self.checkpoint_stats["errors"] += 1
+                logger.error("checkpoint write failed (previous "
+                             "checkpoint stays live): %s", e)
+                return False
+        st = self.checkpoint_stats
+        st["writes"] += 1
+        st["last_bytes"] = nbytes
+        st["last_unix"] = time.time()
+        st["last_ms"] = (time.perf_counter() - t0) * 1e3
+        st["last_capture_ms"] = self.aggregator.last_capture_s * 1e3
+        return True
+
+    def _checkpoint_loop(self) -> None:
+        iv = self.config.checkpoint_interval
+        while not self._shutdown.wait(iv):
+            try:
+                self.checkpoint_now()
+            except Exception:
+                logger.exception("periodic checkpoint failed")
+
+    def crash(self) -> None:
+        """A simulated kill -9: tear down without the graceful exits (no
+        final flush, no shutdown checkpoint, no spool drain).  What was
+        in memory is gone; what reached the checkpoint and spool
+        directories is what a revived server gets."""
+        self._crashed = True
+        self.shutdown()
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -598,10 +771,12 @@ class Server:
         native engine joins its C++ readers) and process what is still
         queued, so the final flush, if configured, holds every datagram
         that reached a listener before the shutdown; a bounded wait for
-        the forwards in flight; then stop the import source, close the
-        forward client, the engine and every socket.  Idempotent: a
-        second call (the CLI's, after POST /quitquitquit) waits for the
-        first and returns."""
+        the forwards in flight; the shutdown checkpoint (with
+        checkpoint_dir); then stop the import source, close the forward
+        client (draining its spool), the engine and every socket.  After
+        crash() the final flush, the wait, the checkpoint and the spool
+        drain are skipped.  Idempotent: a second call (the CLI's, after
+        POST /quitquitquit) waits for the first and returns."""
         with self._close_lock:
             if self._closed:
                 return
@@ -627,17 +802,25 @@ class Server:
             for t in self._reader_threads:
                 t.join(timeout=2.0)
             self._drain_udp()
-            if self.config.flush_on_shutdown:
-                try:
-                    self.flush()
-                except Exception:
-                    logger.exception("final flush failed")
-            self.wait_forwards(max(2.0, self.config.interval))
+            if not self._crashed:
+                if self.config.flush_on_shutdown:
+                    try:
+                        self.flush()
+                    except Exception:
+                        logger.exception("final flush failed")
+                self.wait_forwards(max(2.0, self.config.interval))
+                if self.config.checkpoint_dir:
+                    # the SIGTERM / graceful-exit snapshot a supervisor's
+                    # restart resumes from
+                    try:
+                        self.checkpoint_now()
+                    except Exception:
+                        logger.exception("shutdown checkpoint failed")
             self._forward_pool.shutdown(wait=False)
             if self.grpc_import is not None:
                 self.grpc_import.stop()
             if isinstance(self.forwarder, ForwardClient):
-                self.forwarder.close()
+                self.forwarder.close(drain_spool=not self._crashed)
             # native.stop() joined the C++ readers above, so no reader
             # can see a closed (or recycled) fd
             for sock in self._listeners:

@@ -15,7 +15,11 @@ unary RPC, so the failed chunks are known exactly and only they are
 re-sent, each under the identity it was given when the payload was
 chunked (the global's dedup ledger merges a re-delivered chunk once);
 a V2 stream retries only when gRPC pulled no message from it before the
-failure.  Exhausted retries are counted in `dropped` and re-raised.
+failure.  With a durable spool (`spool=`, forward/spool.py), the
+exhausted remainder's provably undelivered, identified chunks spill to
+disk and the spool's replayer re-delivers them under their recorded
+identities; everything else (an ambiguous failure, an anonymous V2
+remainder, a disk error) is counted in `dropped` and re-raised.
 
 A V1 chunk closes at BATCH_MAX metrics or at BATCH_BYTES of serialized
 MetricList, whichever comes first, so a chunk of deep digests stays
@@ -23,8 +27,13 @@ under gRPC's default 4 MiB receive limit at the peer (ROADMAP C14: the
 JAX client bounds a chunk by count alone, and a peer refuses a chunk of
 2,000 digests of 300 centroids, 12 MB, which the client then drops).
 
-Not here yet: the durable spool (ROADMAP A11), TLS channel credentials
-(A15), failpoints and the flight recorder's spans (A16).
+A spool record larger than BATCH_BYTES (a JAX client's chunk, bounded
+by count alone, C14) replays in parts of at most BATCH_BYTES, each under
+an identity derived from the recorded one, where the JAX client would
+resend it whole and be refused until the record expires (ROADMAP C19).
+
+Not here yet: TLS channel credentials (A15), failpoints and the flight
+recorder's spans, the replay's `forward.replay` span included (A16).
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import grpc
 from google.protobuf import empty_pb2
 
 from veneur_tpu_torch.forward import convert
+from veneur_tpu_torch.forward import spool as spool_mod
 from veneur_tpu_torch.protocol import forward_pb2, metric_pb2
 from veneur_tpu_torch.samplers import samplers as sm
 
@@ -70,6 +80,8 @@ STREAM_CHUNK = 2048
 # 4 MiB receive limit, which JAX and port globals both keep
 BATCH_MAX = 2000
 BATCH_BYTES = 3584 * 1024
+# gRPC's default receive limit, which the import servers keep
+PEER_RECEIVE_LIMIT = 4 * 1024 * 1024
 
 # codes where gRPC guarantees (UNAVAILABLE) or strongly implies
 # (RESOURCE_EXHAUSTED, ABORTED) that the peer imported nothing
@@ -204,11 +216,16 @@ class ForwardClient:
 
     def __init__(self, address: str, timeout_s: float = 10.0,
                  max_streams: int = 8,
-                 retry: Optional[RetryPolicy] = None, source: str = "",
-                 deadline_retry_safe: bool = False):
-        """`source` names this sender in chunk identities; a per-boot
-        nonce is appended so a restart never collides with a previous
-        boot's epochs at the global's dedup ledger."""
+                 retry: Optional[RetryPolicy] = None,
+                 spool: Optional[spool_mod.ForwardSpool] = None,
+                 source: str = "", deadline_retry_safe: bool = False):
+        """`spool` makes exhausted retries crash-durable: identified V1
+        chunks spill to disk and its replayer, started here, re-delivers
+        them oldest-first once the destination recovers.  `source` names
+        this sender in chunk identities; a per-boot nonce is appended so
+        a restart never collides with a previous boot's epochs at the
+        global's dedup ledger (a spooled record keeps its recorded
+        identity: that is the exactly-once handle)."""
         self.address = address
         self.timeout_s = timeout_s
         self.max_streams = max(1, max_streams)
@@ -220,6 +237,7 @@ class ForwardClient:
             max_workers=self.max_streams,
             thread_name_prefix=f"fwd-{address}")
         self._use_v1: Optional[bool] = None   # None: not yet probed
+        self.spool = spool
         self.source = (f"{source or 'veneur'}"
                        f"#{time.time_ns() & 0xFFFFFFFF:08x}")
         self._epoch_seq = 0
@@ -227,11 +245,14 @@ class ForwardClient:
         self.sent = 0        # metrics delivered
         self.retries = 0     # retry attempts taken
         self.dropped = 0     # metrics given up on after exhausted retries
+        self.spilled = 0     # metrics spilled to the durable spool
         self.redials = 0     # fresh channels dialed after exhaustion
         self.chunks = 0      # V1 chunks delivered
         self.bytes_sent = 0  # serialized MetricList bytes of those chunks
         self.encode_s = 0.0  # seconds in to_pb (the forward's encode)
         self._last_redial = 0.0
+        if self.spool is not None:
+            self.spool.start_replayer(self._replay_send)
 
     def _dial(self) -> None:
         """(Re)build the channel and its method stubs.  Call sites read
@@ -275,9 +296,13 @@ class ForwardClient:
     def stats(self) -> dict[str, int]:
         with self._stats_lock:
             return {"sent": self.sent, "retries": self.retries,
-                    "dropped": self.dropped, "redials": self.redials,
+                    "dropped": self.dropped, "spilled": self.spilled,
+                    "redials": self.redials,
                     "chunks": self.chunks, "bytes_sent": self.bytes_sent,
                     "encode_s": self.encode_s}
+
+    def spool_stats(self) -> Optional[dict]:
+        return None if self.spool is None else self.spool.stats()
 
     def _count(self, field: str, n: int) -> None:
         with self._stats_lock:
@@ -318,7 +343,7 @@ class ForwardClient:
                 remaining = f.undelivered
                 if (not f.retry_safe
                         or retry_idx >= self.retry.attempts - 1):
-                    self._drop(remaining, f, retry_idx + 1)
+                    self._spill_or_drop(remaining, f, retry_idx + 1)
                     return
                 self._count("retries", 1)
                 delay = self.retry.delay_s(retry_idx, self._retry_rng)
@@ -329,17 +354,82 @@ class ForwardClient:
                 time.sleep(delay)
                 retry_idx += 1
 
-    def _drop(self, chunks: list, f: _SendFailure, attempts: int) -> None:
-        """The exhausted remainder: redial after a transport failure,
-        count the metrics in `dropped` and re-raise the cause."""
+    def _spill_or_drop(self, chunks: list, f: _SendFailure,
+                       attempts: int) -> None:
+        """The exhausted remainder (`client.py:405-442` of the JAX
+        package): redial after a transport failure; provably undelivered
+        identified chunks spill to the spool; everything else (an
+        ambiguous failure, whose peer may be a proxy that re-shards
+        without a ledger; an anonymous V2 remainder; no spool; a disk
+        error) is counted in `dropped` and the cause re-raised."""
         self._maybe_redial(f.cause)
-        dropped = sum(len(c.pbs) for c in chunks)
-        self._count("dropped", dropped)
-        logger.warning("forward to %s: dropping %d metrics after %d "
-                       "attempt(s) (%s%s)", self.address, dropped,
-                       attempts, f.cause,
-                       "" if f.retry_safe else "; not retry-safe")
-        raise f.cause
+        spilled = dropped = 0
+        for c in chunks:
+            if (self.spool is not None and c.ident is not None
+                    and f.retry_safe):
+                body = forward_pb2.MetricList(
+                    metrics=c.pbs).SerializeToString()
+                if self.spool.append(c.ident, body, len(c.pbs)):
+                    spilled += len(c.pbs)
+                    continue
+            dropped += len(c.pbs)
+        if spilled:
+            self._count("spilled", spilled)
+            logger.info("forward to %s: spilled %d metrics to the spool "
+                        "after %d attempt(s) (%s)", self.address, spilled,
+                        attempts, f.cause)
+        if dropped:
+            self._count("dropped", dropped)
+            logger.warning("forward to %s: dropping %d metrics after %d "
+                           "attempt(s) (%s%s)", self.address, dropped,
+                           attempts, f.cause,
+                           "" if f.retry_safe else "; not retry-safe")
+            raise f.cause
+
+    def _replay_send(self, rec: spool_mod.SpoolRecord, body: bytes) -> None:
+        """The spool replayer's delivery (`client.py:444-495` of the JAX
+        package): the recorded MetricList bytes go out as one V1 RPC
+        under the recorded chunk identity.  A retry-safe failure raises
+        RetryableReplayError (the spool keeps the record at its head);
+        any other failure raises as it is (the spool drops the record
+        with accounting).  A body above BATCH_BYTES goes in parts
+        (ROADMAP C19).
+
+        The RPC waits for the channel to be ready: a fail-fast RPC on a
+        channel whose peer died leaves the subchannel in
+        TRANSIENT_FAILURE, and every later tick would fail UNAVAILABLE
+        after the peer came back; the deadline still bounds each
+        attempt."""
+        if len(body) > BATCH_BYTES:
+            parts = chunk_pbs(list(
+                forward_pb2.MetricList.FromString(body).metrics))
+            if len(parts) > 1:
+                source, epoch, idx = rec.ident
+                for j, part in enumerate(parts):
+                    self._replay_rpc(
+                        forward_pb2.MetricList(
+                            metrics=part).SerializeToString(),
+                        (f"{source}~{idx:x}", epoch, j), len(part))
+                return
+        self._replay_rpc(body, rec.ident, rec.n_metrics)
+
+    def _replay_rpc(self, body: bytes, ident: tuple, n_metrics: int) -> None:
+        try:
+            self._v1(body, timeout=self.timeout_s,
+                     metadata=((CHUNK_ID_KEY, chunk_id_value(ident)),),
+                     wait_for_ready=True)
+        except grpc.RpcError as e:
+            # a lone metric above the peer's receive limit is refused
+            # on every attempt: not worth keeping at the spool's head
+            if self._rsafe(e) and not (
+                    _code_of(e) == grpc.StatusCode.RESOURCE_EXHAUSTED
+                    and len(body) > PEER_RECEIVE_LIMIT):
+                raise spool_mod.RetryableReplayError(str(e)) from e
+            raise
+        with self._stats_lock:
+            self.sent += n_metrics
+            self.chunks += 1
+            self.bytes_sent += len(body)
 
     def _send_attempt(self, chunks: list) -> None:
         """One try at delivering `chunks`; raises _SendFailure carrying
@@ -463,6 +553,12 @@ class ForwardClient:
                 undelivered, errs[0],
                 all(self._rsafe(e) for e in errs)) from errs[0]
 
-    def close(self) -> None:
+    def close(self, drain_spool: bool = True) -> None:
+        """Stop the spool's replayer and close the channel.  A graceful
+        close fsyncs the spool's tail; a simulated crash
+        (`Server.crash`) passes drain_spool=False and relies on the
+        per-append flush and the recovery scan."""
+        if self.spool is not None:
+            self.spool.close(drain=drain_spool)
         self._pool.shutdown(wait=False)
         self.channel.close()

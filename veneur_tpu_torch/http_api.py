@@ -22,10 +22,13 @@ package serves:
                       http_flush_endpoint; an unauthenticated flush
                       trigger is a lever against production, hence the
                       gate)
+  POST /checkpoint    one checkpoint cut now (checkpoint_now), answering
+                      {"ok": bool, "writes": n}, 500 when it failed
+                      (with http_flush_endpoint too)
 
 Every other path answers 404: a gated route while its option is off,
-and the JAX package's /debug/* (ROADMAP A16) and POST /checkpoint (A11),
-which are not ported yet.  The caller builds and starts `HttpApi`
+and the JAX package's /debug/* (ROADMAP A16), which are not ported
+yet.  The caller builds and starts `HttpApi`
 (`cli/veneur.py` does on `http_address`; `Server` starts no HTTP
 listener).
 """
@@ -86,6 +89,17 @@ def make_handler(server) -> type:
                 reply(self, 200, json.dumps(
                     {"flush_count": server.flush_count}).encode(),
                     "application/json")
+            elif self.path == "/checkpoint" and cfg.http_flush_endpoint:
+                try:
+                    ok = server.checkpoint_now()
+                except Exception as e:
+                    reply(self, 500,
+                          f"checkpoint failed: {e}\n".encode())
+                    return
+                reply(self, 200 if ok else 500, json.dumps(
+                    {"ok": bool(ok),
+                     "writes": server.checkpoint_stats["writes"]}
+                ).encode(), "application/json")
             else:
                 reply(self, 404, b"not found\n")
 

@@ -544,6 +544,9 @@ class _IdInfo:
     meta: object = None      # the row's RowMeta, to revalidate after GC
     # histogram family dispatch: the arena this id's row lives in
     arena: object = None
+    # the cardinality guard's epoch this binding was made under; an
+    # interval-end eviction bumps it, and the id re-resolves
+    card_epoch: int = -1
 
 
 class NativeIngest:
@@ -553,8 +556,12 @@ class NativeIngest:
     Keeps the engine id -> arena row mapping, revalidated against the
     row GC: a row idle for IDLE_GC_INTERVALS flushes is recycled while
     the engine id outlives it, so a stale entry re-upserts through
-    `row_for`.  The cardinality guard (ROADMAP A13) is not in this
-    package, so every id resolves to its own row."""
+    `row_for`.  With the aggregator's cardinality guard armed, each
+    drained id goes through `guard.resolve` with its staged-sample
+    count (the touch counts its eviction orders by), and a binding made
+    under an older guard epoch re-resolves, since the key may have moved
+    between its exact row and its tenant's rollup row
+    (`veneur_tpu/ingest/__init__.py:649-735`)."""
 
     # the flush's cut waits at most this long for the readers to publish
     # what they have taken off their sockets
@@ -616,20 +623,34 @@ class NativeIngest:
     def _resolve(self, ids: np.ndarray, arena_of) -> tuple:
         """Engine ids -> (rows, arenas of the unique ids, inverse index):
         each unique id resolves once through the cache, `row_for` only on
-        first sight or after the row GC; `arena_of(info)` names the arena
-        of an id whose binding must be (re)made."""
-        uids, inverse = np.unique(ids, return_inverse=True)
+        first sight, after the row GC or after a guard epoch change;
+        `arena_of(key, tags)` names the arena of an identity whose
+        binding must be (re)made."""
+        guard = self.agg.cardinality
+        uids, inverse, counts = np.unique(ids, return_inverse=True,
+                                          return_counts=True)
         urows = np.empty(len(uids), np.int64)
         arenas = []
         uts = self.agg.unique_ts
-        for i, uid in enumerate(uids.tolist()):
+        for i, (uid, count) in enumerate(zip(uids.tolist(),
+                                             counts.tolist())):
             info = self._info[uid]
             arena = info.arena
-            if info.row < 0 or arena is None \
-                    or arena.meta[info.row] is not info.meta:
-                arena = arena_of(info)
-                info.row = arena.row_for(info.key, info.row_scope,
-                                         info.tags)
+            stale = (info.row < 0 or arena is None
+                     or arena.meta[info.row] is not info.meta)
+            rolled = None
+            if guard is not None:
+                rolled = guard.resolve(info.key, info.row_scope, info.tags,
+                                       count)
+                if info.card_epoch != guard.epoch:
+                    info.card_epoch = guard.epoch
+                    stale = True
+            if stale:
+                key, scope, tags = (rolled if rolled is not None
+                                    else (info.key, info.row_scope,
+                                          info.tags))
+                arena = arena_of(key, tags)
+                info.row = arena.row_for(key, scope, tags)
                 info.meta = arena.meta[info.row]
                 info.arena = arena
             else:
@@ -642,15 +663,14 @@ class NativeIngest:
 
     def _rows_for(self, arena, ids: np.ndarray) -> np.ndarray:
         """Engine ids -> rows of one fixed arena."""
-        return self._resolve(ids, lambda info: arena)[0]
+        return self._resolve(ids, lambda key, tags: arena)[0]
 
     def _hrows_for(self, ids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Histogram/timer ids under sketch-family dispatch -> (rows, fam)
         aligned with `ids`, fam coding the target arena: 0 digests, 1
         moments, 2 compactors."""
         agg = self.agg
-        rows, arenas, inverse = self._resolve(
-            ids, lambda info: agg._histo_arena(info.key, info.tags))
+        rows, arenas, inverse = self._resolve(ids, agg._histo_arena)
         codes = np.asarray([1 if a is agg.moments
                             else 2 if a is agg.compactors else 0
                             for a in arenas], np.int8)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import logging
 import threading
 import time
@@ -43,31 +44,42 @@ MAX_WORKERS = 64
 
 class DedupLedger:
     """Bounded per-source ledger of imported chunk identities: a chunk
-    delivered twice (a retry after an ambiguous timeout) merges once.
+    delivered twice (a retry after an ambiguous timeout, a spool replay
+    after a crash on either side) merges once.
 
     `run_once(ident, import_fn)` reserves the identity under the ledger
     lock, runs the import outside it (concurrent V1 payloads keep
     parsing in parallel) and releases the reservation if the import
     fails, so a failed delivery can retry.  A second delivery of a chunk
-    whose first is still importing waits for it.  The window is a
-    per-source FIFO of `window` identities, oldest evicted.  (The
-    checkpoint cut and the ledger's snapshot come with checkpoint files,
-    ROADMAP A11.)"""
+    whose first is still importing waits for it.  The checkpoint writer
+    takes `paused()` around its cut: new imports block and the ones in
+    flight drain first, so a checkpoint never holds a chunk's data
+    without its identity, or the reverse.  `snapshot()` and `restore()`
+    carry the ledger through the checkpoint.  The window is a
+    per-source FIFO of `window` identities, oldest evicted."""
 
     def __init__(self, window: int = 4096):
         self.window = max(16, int(window))
         self._cond = threading.Condition()
         # source -> (deque of idents in arrival order, set of them)
         self._sources: dict = {}
-        self._inflight: set = set()
+        self._active = 0            # imports between reserve and finish
+        self._inflight: set = set()     # reserved, not yet settled
+        self._paused = False        # a checkpoint cut in progress
         self.recorded = 0
         self.duplicates = 0
+
+    def _seen_locked(self, ident: tuple) -> bool:
+        entry = self._sources.get(ident[0])
+        return entry is not None and ident in entry[1]
 
     def _record_locked(self, ident: tuple) -> None:
         entry = self._sources.get(ident[0])
         if entry is None:
             entry = self._sources[ident[0]] = (collections.deque(), set())
         dq, seen = entry
+        if ident in seen:
+            return
         dq.append(ident)
         seen.add(ident)
         if len(dq) > self.window:
@@ -75,42 +87,90 @@ class DedupLedger:
         self.recorded += 1
 
     def _unrecord_locked(self, ident: tuple) -> None:
-        dq, seen = self._sources[ident[0]]
-        if ident in seen:
-            seen.discard(ident)
-            dq.remove(ident)
-            self.recorded -= 1
+        entry = self._sources.get(ident[0])
+        if entry is None or ident not in entry[1]:
+            return
+        entry[1].discard(ident)
+        try:
+            entry[0].remove(ident)
+        except ValueError:
+            pass
+        self.recorded -= 1
 
     def run_once(self, ident: Optional[tuple], import_fn):
         """Run `import_fn()` once per identity.  Returns (result,
         duplicate); on a duplicate the import is skipped and result is
-        None.  ident None (an unidentified sender) always imports."""
-        if ident is None:
-            return import_fn(), False
+        None.  ident None (an unidentified sender) always imports, after
+        any checkpoint cut in progress."""
         with self._cond:
-            # a duplicate must not be acked while the original could
-            # still fail
-            while ident in self._inflight:
-                self._cond.wait()
-            entry = self._sources.get(ident[0])
-            if entry is not None and ident in entry[1]:
-                self.duplicates += 1
-                logger.info("dedup: skipping duplicate chunk %s", ident)
-                return None, True
-            self._record_locked(ident)
-            self._inflight.add(ident)
+            if ident is None:
+                while self._paused:
+                    self._cond.wait()
+            else:
+                # wait out a checkpoint cut and an import of the same
+                # identity in flight: a duplicate must not be acked
+                # while the original could still fail
+                while self._paused or ident in self._inflight:
+                    self._cond.wait()
+                if self._seen_locked(ident):
+                    self.duplicates += 1
+                    logger.info("dedup: skipping duplicate chunk %s",
+                                ident)
+                    return None, True
+                self._record_locked(ident)
+                self._inflight.add(ident)
+            self._active += 1
         try:
             result = import_fn()
         except BaseException:
             with self._cond:
-                self._unrecord_locked(ident)
-                self._inflight.discard(ident)
+                if ident is not None:
+                    self._unrecord_locked(ident)
+                    self._inflight.discard(ident)
+                self._active -= 1
                 self._cond.notify_all()
             raise
         with self._cond:
-            self._inflight.discard(ident)
+            if ident is not None:
+                self._inflight.discard(ident)
+            self._active -= 1
             self._cond.notify_all()
         return result, False
+
+    @contextlib.contextmanager
+    def paused(self):
+        """The checkpoint cut: block new imports and drain the ones in
+        flight, so the ledger and the aggregator snapshot as one."""
+        with self._cond:
+            while self._paused:         # one cut at a time
+                self._cond.wait()
+            self._paused = True
+            while self._active > 0:
+                self._cond.wait()
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._paused = False
+                self._cond.notify_all()
+
+    def snapshot(self) -> dict:
+        """JSON-able state for the checkpoint (the JAX package's layout).
+        A coherent cut takes it inside `paused()`, with the aggregator's
+        snapshot."""
+        with self._cond:
+            return {
+                "window": self.window,
+                "sources": {
+                    src: [[s, int(e), int(i)] for (s, e, i) in dq]
+                    for src, (dq, _) in self._sources.items()},
+            }
+
+    def restore(self, state: dict) -> None:
+        with self._cond:
+            for idents in (state.get("sources") or {}).values():
+                for s, e, i in idents:
+                    self._record_locked((str(s), int(e), int(i)))
 
     def stats(self) -> dict:
         with self._cond:
