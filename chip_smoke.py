@@ -1839,7 +1839,13 @@ def _moment_vectors(vals: np.ndarray, k: int = MOMENTS_K) -> np.ndarray:
     return vecs
 
 
-def _run_flushes(label, srv, refill, check, n_timed=3):
+# timed flushes a full-size cell takes after its warm-up (3 until the
+# egress phase joined the script; 1 keeps the run well inside its time
+# limit)
+FULL_SIZE_TIMED = 1
+
+
+def _run_flushes(label, srv, refill, check, n_timed=FULL_SIZE_TIMED):
     """One warm-up and n_timed timed flushes of `srv`, each after
     refill(); prints the p50 flush and its segments."""
     refill()
@@ -2082,7 +2088,7 @@ def phase_full_size(seed=2, n_keys=100_000, deep_keys=16_384):
     return results
 
 
-def moments_cells(rng, n_keys, n_timed=3):
+def moments_cells(rng, n_keys, n_timed=FULL_SIZE_TIMED):
     """The moments family at the north star's scale.  Samples are
     latencies in ms, gamma(2, 20) + 10: the rows' dynamic range stays
     far below LOG_DOMAIN_RATIO, so no row sits at the log-domain gate,
@@ -2664,7 +2670,7 @@ def phase_slice_cubes(seed=6):
         f"other")
 
 
-def cube_cell(seed=7, groups=4096, total_series=102_400, iters=40):
+def cube_cell(seed=7, groups=4096, total_series=102_400, iters=25):
     """The group-by read at the shape of bench.py's `bench_cube_query`:
     `total_series` distinct t-digest series (`cq.load`, a `host:` tag
     under every sample) and as many moments series (`cqm.load`) in
@@ -4216,7 +4222,7 @@ def phase_proxy(cell=None, slice_=None) -> dict:
 
 
 def mesh_cells(seed=9, n_keys=100_000, per=64, n_sets=10_000,
-               n_counters=100_000, n_timed=3, grids=None):
+               n_counters=100_000, n_timed=FULL_SIZE_TIMED, grids=None):
     """The meshed global tier at the north star's scale: 100k histogram
     keys x 64 raw samples at weight 1 (B2 at [131072, 64]), 10,000 set
     keys (1 to 200 members each) and 100,000 counters (every 50th above
@@ -5935,6 +5941,539 @@ def phase_durability() -> dict:
                 "guard": durability_guard()}
 
 
+# ---------------------------------------------------------------------------
+# the egress plane and the metric sinks (example.yaml's own)
+# ---------------------------------------------------------------------------
+
+EXAMPLE_ENV = {"DATADOG_API_KEY": "k", "SPLUNK_HEC_TOKEN": "t"}
+EGRESS_SECRET = "egress-test-secret"
+# the outage sink's breaker cooldown: long enough that interval 2 finds
+# it open, short enough that the replay after the release comes soon
+EGRESS_BREAKER_RESET_S = 10.0
+# the outage backend answers 503 after this long (under the datadog
+# sink's 10 s request timeout): a slow, failing backend that keeps its
+# lane busy while the second interval is fed and flushed
+EGRESS_OUTAGE_DELAY_S = 5.0
+
+
+class _StatsdLog:
+    """A self-metrics client that keeps every count (the lanes emit the
+    cause of each spill as a tag)."""
+
+    def __init__(self):
+        self.counts = []
+        self.lock = threading.Lock()
+
+    def count(self, name, value, tags=None, rate=1.0):
+        with self.lock:
+            self.counts.append((name, value, tuple(tags or ())))
+
+    def timing(self, *a, **kw):
+        pass
+
+    def gauge(self, *a, **kw):
+        pass
+
+    def close(self):
+        pass
+
+
+def _example_egress_config():
+    """example.yaml through the port's loader, with the options the port
+    refuses (span sinks, listeners, self-telemetry: ROADMAP A15, A16)
+    removed one by one as the loader names them.  Returns the loaded
+    Config and the removed option names."""
+    import tempfile
+
+    import yaml
+    from veneur_tpu_torch import config as tconfig
+    with open(os.path.join(ROOT, "example.yaml")) as f:
+        data = yaml.safe_load(f)
+    removed = []
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "example.yaml")
+        for _ in range(64):
+            with open(path, "w") as f:
+                yaml.safe_dump(data, f, sort_keys=False)
+            try:
+                return tconfig.read_config(path, environ=EXAMPLE_ENV), removed
+            except NotImplementedError as e:
+                name = str(e).split("config option ", 1)[1].split("=", 1)[0]
+            removed.append(name)
+            if name in data:
+                del data[name]
+            else:
+                del data["features"][name]
+    raise AssertionError(f"example.yaml still refused after {removed}")
+
+
+class _EgressCapture:
+    """A loopback HTTP endpoint for one sink, bound before the server
+    starts.  Keeps every request it answered 200; answers `refuse_code`
+    (counting them) until release(); with `secret` it recomputes each
+    request's SigV4 signature and answers 403 to a mismatch."""
+
+    def __init__(self, refuse_code=None, secret=None, refuse_delay_s=0.0):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from veneur_tpu_torch.util import awsauth
+        cap = self
+        self.got, self.refused, self.bad_sig = [], 0, 0
+        self.nbytes = 0
+        self.refuse_code = refuse_code
+        self.lock = threading.Lock()
+
+        class H(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def _handle(self):
+                body = self.rfile.read(int(self.headers.get(
+                    "Content-Length", 0)))
+                code = 200
+                with cap.lock:
+                    refusing = cap.refuse_code is not None
+                    if refusing:
+                        cap.refused += 1
+                if refusing:
+                    time.sleep(refuse_delay_s)
+                with cap.lock:
+                    if refusing:
+                        code = cap.refuse_code or 503
+                    elif secret is not None and not awsauth.verify_signature(
+                            self.command,
+                            f"http://{self.headers['Host']}{self.path}",
+                            dict(self.headers), body, secret):
+                        cap.bad_sig += 1
+                        code = 403
+                    else:
+                        cap.got.append((self.path, dict(self.headers), body))
+                        cap.nbytes += len(body)
+                self.send_response(code)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            do_POST = do_PUT = do_GET = _handle
+
+            def log_message(self, *a):
+                pass
+
+        self.srv = ThreadingHTTPServer(("127.0.0.1", 0), H)
+        self.srv.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def release(self):
+        with self.lock:
+            self.refuse_code = None
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+def _dd_view(m, interval_s):
+    """A metric as the datadog series carries it (name, tags without
+    host:/device:, value as a rate for counters)."""
+    v = m.value / interval_s if m.type == "counter" else m.value
+    return (m.name, tuple(t for t in m.tags
+                          if not t.startswith(("host:", "device:"))), v)
+
+
+def _dd_received(cap) -> list:
+    import gzip
+    out = []
+    for path, _, body in cap.got:
+        if path.startswith("/api/v1/series"):
+            for s in json.loads(gzip.decompress(body))["series"]:
+                out.append((s["metric"], tuple(s["tags"]), s["points"][0][1]))
+    return out
+
+
+def _read_uvarint(b, p):
+    r = s = 0
+    while True:
+        c = b[p]
+        p += 1
+        r |= (c & 0x7F) << s
+        if c < 0x80:
+            return r, p
+        s += 7
+
+
+def _pb_fields(b):
+    """(field number, value) pairs of one protobuf message: bytes for
+    length-delimited fields, ints for varints, 8 raw bytes for fixed64."""
+    p, out = 0, []
+    while p < len(b):
+        key, p = _read_uvarint(b, p)
+        wt = key & 7
+        if wt == 2:
+            n, p = _read_uvarint(b, p)
+            out.append((key >> 3, b[p:p + n]))
+            p += n
+        elif wt == 0:
+            v, p = _read_uvarint(b, p)
+            out.append((key >> 3, v))
+        elif wt == 1:
+            out.append((key >> 3, b[p:p + 8]))
+            p += 8
+        else:
+            raise ValueError(f"wire type {wt}")
+    return out
+
+
+def _cortex_received(cap) -> list:
+    import struct
+    from veneur_tpu_torch.util import snappy
+    out = []
+    for _, _, body in cap.got:
+        for _, ts in _pb_fields(snappy.decompress(body)):
+            labels, value = [], None
+            for f, v in _pb_fields(ts):
+                if f == 1:
+                    lf = dict(_pb_fields(v))
+                    labels.append((lf[1].decode(), lf[2].decode()))
+                else:
+                    value = struct.unpack("<d", dict(_pb_fields(v))[1])[0]
+            out.append((tuple(labels), value))
+    return out
+
+
+def _cortex_view(m, default_labels):
+    from veneur_tpu_torch.sinks.cortex import sanitize_label
+    labels = {"__name__": sanitize_label(m.name)}
+    labels.update(default_labels)
+    for t in m.tags:
+        k, v = t.split(":", 1) if ":" in t else (t, "true")
+        labels[sanitize_label(k)] = v
+    if m.hostname and "hostname" not in labels:
+        labels["hostname"] = m.hostname
+    return (tuple(sorted(labels.items())), float(m.value))
+
+
+def _s3_received(cap) -> list:
+    import gzip
+    rows = []
+    for _, _, body in cap.got:
+        rows += gzip.decompress(body).decode().splitlines()
+    return rows
+
+
+def phase_egress(seed=19, n_digests=100_000, centroids=64,
+                 n_counters=10_000, n_sets=1_000, members=100) -> dict:
+    """example.yaml's metric sinks (datadog, cortex, s3-archive,
+    blackhole), its `archive-everything` routing rule and its
+    `tags_exclude` (nonce everywhere, host_env for datadog), loaded by
+    the port's loader with every endpoint on a loopback capture, plus a
+    `datadog-outage` sink in the rule whose capture answers 503 until
+    released.  Two full-width intervals (`n_digests` imported t-digests
+    of `centroids` centroids, `n_counters` counters, `n_sets` sets,
+    every row tagged nonce: and host_env:) flush through B1 while the
+    outage lasts; then the release.  Each capture decodes what it
+    received and must hold exactly what the port's
+    `filter_metrics_for_sink` gives that sink on the rendered interval;
+    the outage sink retries, trips its breaker, spills interval 1 and
+    interval 2 (breaker open) and, after the release, receives each
+    interval once; the plane ends with its ledger closed, nothing
+    pending and nothing dropped.
+
+    The datadog sink, like the JAX package's, reports a failed post as
+    dropped points rather than raising, so a plain datadog sink behind
+    an outage drops with accounting and never spills.  The outage sink
+    is a datadog sink whose flush raises when it dropped anything, which
+    is what a lane retries, trips its breaker on and spools."""
+    import datetime
+    import tempfile
+
+    import torch
+    from veneur_tpu_torch import sinks as sink_mod
+    from veneur_tpu_torch.config import Config
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.samplers import samplers as sm
+    from veneur_tpu_torch.sinks.datadog import DatadogMetricSink
+    from veneur_tpu_torch.sinks.simple import encode_tsv_row
+
+    example, removed = _example_egress_config()
+    captures = {"datadog": _EgressCapture(),
+                "cortex": _EgressCapture(),
+                "s3-archive": _EgressCapture(secret=EGRESS_SECRET),
+                "datadog-outage": _EgressCapture(
+                    refuse_code=503, refuse_delay_s=EGRESS_OUTAGE_DELAY_S)}
+    specs = []
+    for spec in example.metric_sinks:
+        cfg = dict(spec.config)
+        if spec.kind == "datadog":
+            cfg["api_hostname"] = captures[spec.name].url
+        elif spec.kind == "cortex":
+            cfg["url"] = captures[spec.name].url + "/api/v1/push"
+        elif spec.kind == "s3":
+            cfg.update(aws_endpoint=captures[spec.name].url,
+                       aws_access_key_id="AKIDEGRESS",
+                       aws_secret_access_key=EGRESS_SECRET)
+        specs.append(sink_mod.SinkSpec(
+            kind=spec.kind, name=spec.name, config=cfg,
+            max_name_length=spec.max_name_length,
+            max_tag_length=spec.max_tag_length, max_tags=spec.max_tags,
+            strip_tags=spec.strip_tags, add_tags=spec.add_tags))
+    require([s.name for s in specs] == ["datadog", "cortex", "s3-archive",
+                                        "blackhole"],
+            f"example.yaml's sinks: {[s.name for s in specs]}")
+    # nothing may leave the machine: every endpoint on the loopback
+    for s in specs:
+        for key in ("api_hostname", "url", "aws_endpoint"):
+            url = s.config.get(key)
+            require(url is None or url.startswith("http://127.0.0.1:"),
+                    f"sink {s.name} {key} {url} is not a loopback capture")
+    routing = list(example.metric_sink_routing)
+    require(example.enable_metric_sink_routing and len(routing) == 1
+            and routing[0].name == "archive-everything",
+            f"example.yaml's routing: {routing}")
+    routing[0].matched = list(routing[0].matched) + ["datadog-outage"]
+    require(example.tags_exclude == ["nonce", "host_env|datadog"],
+            f"example.yaml's tags_exclude: {example.tags_exclude}")
+
+    class OutageDatadogSink(DatadogMetricSink):
+        """A datadog sink whose flush raises when it dropped points."""
+
+        def flush(self, metrics):
+            res = super().flush(metrics)
+            if res.dropped:
+                raise RuntimeError(f"datadog-outage dropped {res.dropped} "
+                                   "points")
+            return res
+
+    spool_dir = tempfile.mkdtemp()
+    cfg = Config(interval=3600.0, percentiles=[0.99], aggregates=["count"],
+                 hostname="egress-global", metric_sinks=specs,
+                 enable_metric_sink_routing=True,
+                 metric_sink_routing=routing,
+                 tags_exclude=list(example.tags_exclude),
+                 egress_spool_dir=spool_dir, egress_max_retries=1,
+                 egress_retry_backoff=0.05, egress_breaker_threshold=2,
+                 egress_breaker_reset=EGRESS_BREAKER_RESET_S,
+                 egress_spool_replay_interval=0.2,
+                 arena_initial_capacity=n_digests)
+    outage = OutageDatadogSink(sink_mod.SinkSpec(
+        kind="datadog", name="datadog-outage", config={
+            "api_key": "k", "api_hostname": captures["datadog-outage"].url,
+            "flush_retries": 1}), cfg)
+    rng = np.random.default_rng(seed)
+
+    def interval():
+        means = np.sort(rng.integers(0, 5000, (n_digests, centroids)),
+                        axis=1).astype(np.float64)
+        wts = rng.integers(1, 50, (n_digests, centroids)).astype(np.float64)
+        fms = [sm.ForwardMetric(
+            name=f"eg.h{i}", tags=[f"nonce:{i}", "host_env:prod", "az:a"],
+            kind="histogram", scope=0, digest_means=means[i].tolist(),
+            digest_weights=wts[i].tolist(), digest_min=float(means[i, 0]),
+            digest_max=float(means[i, -1]),
+            digest_rsum=float((wts[i] / np.maximum(means[i], 1.0)).sum()))
+            for i in range(n_digests)]
+        lines = [b"eg.c%d:%d|c|#nonce:%d,host_env:prod" % (i, v, i)
+                 for i, v in enumerate(rng.integers(1, 100,
+                                                    n_counters).tolist())]
+        for s in range(n_sets):
+            lines += [b"eg.s%d:m%d|s|#nonce:%d,host_env:prod" % (s, v, s)
+                      for v in rng.integers(0, 10 * members,
+                                            members).tolist()]
+        return fms, _datagrams(lines)
+
+    t0 = time.perf_counter()
+    intervals = [interval(), interval()]
+    build_s = time.perf_counter() - t0
+    srv = Server(cfg, extra_metric_sinks=[outage], device=DEVICE)
+    srv.statsd = statsd = _StatsdLog()
+    lanes = {lane.name: lane for lane in srv.egress.lanes}
+    olane = lanes["datadog-outage"]
+    srv.start()
+    out = {"removed_options": removed, "build_s": build_s,
+           "kinds_on_card": ["datadog", "cortex", "s3", "blackhole"]}
+    rendered = []
+    try:
+        l0 = _read_launches()
+        for k, (fms, dgrams) in enumerate(intervals, 1):
+            t0 = time.perf_counter()
+            ok, failed = srv.aggregator.import_metrics(fms)
+            require((ok, failed) == (n_digests, 0), (ok, failed))
+            for dg in dgrams:
+                srv.process_packet_buffer(dg)
+            feed_s = time.perf_counter() - t0
+            busy = srv.egress._pending
+            t0 = time.perf_counter()
+            res = srv.flush()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            returned_early = not srv.egress.settle(timeout_s=0.0)
+            require(returned_early, f"interval {k}: Server.flush returned "
+                    "after the lanes had delivered")
+            seg = dict(srv.aggregator.last_flush_segments)
+            seg_sum = sum(v for key, v in seg.items()
+                          if key.endswith("_s") and isinstance(v, float))
+            rendered.append(res.metrics)
+            out[f"interval{k}"] = {
+                "feed_s": feed_s, "flush_ms": wall * 1e3,
+                "segments_sum_ms": seg_sum * 1e3,
+                "jobs_pending_at_flush": busy,
+                "metrics": len(res.metrics)}
+            card_log(f"egress interval {k}: {len(res.metrics)} metrics "
+                     f"(imported and sent in {feed_s:.2f} s); "
+                     f"Server.flush {wall * 1e3:.1f} ms wall against "
+                     f"{seg_sum * 1e3:.1f} ms in its segments (routing "
+                     f"and the handoff are the rest), {busy} lane jobs "
+                     "still open when it began; returned before the lanes "
+                     "delivered")
+            if k == 1:
+                t_flush1 = time.perf_counter()
+        launches = _launch_delta(l0)
+        require(launches.get("weighted_eval", 0) == 2,
+                f"the egress intervals launched {launches}")
+        require(out["interval2"]["jobs_pending_at_flush"] > 0,
+                "the lanes were idle when the second flush began")
+        # the outage lane retries interval 1, trips and spills it; then
+        # interval 2 finds the breaker open and spills without a post
+        deadline = time.monotonic() + 300
+        while olane.spool.stats()["spilled"] < 1:
+            require(time.monotonic() < deadline,
+                    f"no spill: {olane.stats()}")
+            time.sleep(0.02)
+        out["spill1_s"] = time.perf_counter() - t_flush1
+        t_trip = time.monotonic()
+        require(olane.retried >= 1 and olane.breaker.trips == 1,
+                f"outage lane: {olane.stats()}")
+        deadline = time.monotonic() + 300
+        while olane.spool.stats()["spilled"] < 2:
+            require(time.monotonic() < deadline,
+                    f"interval 2 not spilled: {olane.stats()}")
+            time.sleep(0.02)
+        out["spilled_within_cooldown_s"] = time.monotonic() - t_trip
+        sp = olane.spool.stats()
+        require(sp["pending_records"] == 2
+                and olane.breaker.state() == "open",
+                f"outage spool {sp}, breaker {olane.breaker.snapshot()}")
+        causes = [tags for name, _, tags in statsd.counts
+                  if name == "egress.spilled_total"
+                  and "sink_name:datadog-outage" in tags]
+        require([c[-1] for c in causes] == ["cause:retries_exhausted",
+                                            "cause:breaker_open"],
+                f"outage spills: {causes}")
+        # two lane attempts at interval 1, each posting every chunk with
+        # the sink's own retry; none at interval 2
+        n_chunks = -(-len(rendered[0]) // outage.flush_max_per_body)
+        refused = captures["datadog-outage"].refused
+        require(refused == 2 * 2 * n_chunks
+                and not captures["datadog-outage"].got,
+                f"the outage capture refused {refused} posts, not "
+                f"2 x 2 x {n_chunks}")
+        # the release: once the cooldown runs out, the replayer's
+        # half-open probe delivers both spilled intervals, oldest first
+        captures["datadog-outage"].release()
+        t0 = time.perf_counter()
+        require(srv.egress.settle(timeout_s=600.0),
+                "the lanes did not settle")
+        out["settle_after_release_s"] = time.perf_counter() - t0
+        deadline = time.monotonic() + 300
+        t_probe = None
+        while olane.spool.stats()["pending_records"]:
+            require(time.monotonic() < deadline,
+                    f"no replay: {olane.spool.stats()}")
+            if t_probe is None and olane.breaker.state() != "open":
+                t_probe = time.perf_counter()
+            time.sleep(0.02)
+        out["release_to_replayed_s"] = time.perf_counter() - t0
+        out["replay_s"] = time.perf_counter() - (t_probe or t0)
+        require(olane.breaker.state() == "closed",
+                f"after the replay: {olane.breaker.snapshot()}")
+        stats = srv.egress.stats()
+    finally:
+        srv.shutdown()
+        for c in captures.values():
+            c.close()
+    require(stats["ledger_closed"] and stats["pending"] == 0
+            and stats["dropped"] == 0 and stats["queue_dropped"] == 0,
+            f"egress ledger: { {k: v for k, v in stats.items() if k != 'per_sink'} }")
+    # what each sink received is the port's filter of what was rendered
+    date = datetime.datetime.now(datetime.timezone.utc).strftime("%Y-%m-%d")
+    want = {}
+    t0 = time.perf_counter()
+    for name in ("datadog", "cortex", "s3-archive", "blackhole",
+                 "datadog-outage"):
+        spec = lanes[name].spec
+        rows = []
+        for batch in rendered:
+            filt, counts = sink_mod.filter_metrics_for_sink(
+                spec, True, batch, excluded_tags=srv._excluded_tags_for(name))
+            rows.extend(filt)
+        want[name] = rows
+    require(not want["blackhole"] and lanes["blackhole"].flushed_points == 0,
+            "the blackhole sink is outside the rule but received "
+            f"{lanes['blackhole'].flushed_points} points")
+    n_rows = sum(len(b) for b in rendered)
+    for name, rows in want.items():
+        if name == "blackhole":
+            continue
+        require(len(rows) == n_rows, f"{name}: the filter kept "
+                f"{len(rows)} of {n_rows} rows")
+        require(not any(t.startswith("nonce:") for m in rows for t in m.tags),
+                f"{name}: nonce survived the filter")
+        require(any(t.startswith("host_env:") for m in rows for t in m.tags)
+                == (name not in ("datadog",)),
+                f"{name}: host_env kept {name != 'datadog'} expected")
+    checks = {}
+    for name in ("datadog", "datadog-outage"):
+        got = sorted(_dd_received(captures[name]))
+        exp = sorted(_dd_view(m, cfg.interval) for m in want[name])
+        require(got == exp, f"{name}: received {len(got)} series, the "
+                f"filter gives {len(exp)}: {_first_diff(got, exp)}")
+        checks[name] = len(got)
+    got = sorted(_cortex_received(captures["cortex"]))
+    exp = sorted(_cortex_view(m, {}) for m in want["cortex"])
+    require(got == exp, f"cortex: received {len(got)} series, the filter "
+            f"gives {len(exp)}: {_first_diff(got, exp)}")
+    checks["cortex"] = len(got)
+    s3 = captures["s3-archive"]
+    require(s3.bad_sig == 0 and len(s3.got) == 2,
+            f"s3: {len(s3.got)} objects, {s3.bad_sig} bad signatures")
+    got = sorted(_s3_received(s3))
+    exp = sorted(encode_tsv_row(m, cfg.hostname, cfg.interval, date)
+                 for m in want["s3-archive"])
+    require(got == exp, f"s3: received {len(got)} rows, the filter gives "
+            f"{len(exp)}: {_first_diff(got, exp)}")
+    checks["s3-archive"] = len(got)
+    out["check_s"] = time.perf_counter() - t0
+    out["received_rows"] = checks
+    out["launches"] = launches
+    out["lanes"] = {}
+    for name, lane in lanes.items():
+        st = stats["per_sink"][lane.label]
+        cap = captures.get(name)
+        out["lanes"][name] = {
+            "last_delivery_s": lane.last_delivery_s,
+            "flushed_points": st["flushed_points"],
+            "retried": st["retried"], "errors": st["errors"],
+            "bytes": cap.nbytes if cap is not None else 0,
+            "breaker": st["breaker"], "spool": st.get("spool")}
+        card_log(f"egress lane {name}: last delivery "
+                 f"{lane.last_delivery_s * 1e3:.1f} ms, "
+                 f"{st['flushed_points']} points, "
+                 f"{cap.nbytes if cap is not None else 0} bytes received, "
+                 f"{st['retried']} retries, {st['errors']} errors")
+    card_log(f"egress outage: spilled interval 1 {out['spill1_s']:.2f} s "
+             f"after its flush (two attempts, then the breaker), interval "
+             f"2 as breaker_open {out['spilled_within_cooldown_s']:.2f} s "
+             f"after the trip; after the release the breaker's "
+             f"{EGRESS_BREAKER_RESET_S:.0f} s cooldown ran out and the "
+             f"replay delivered both in {out['replay_s']:.2f} s "
+             f"({out['release_to_replayed_s']:.2f} s after the release); "
+             f"every capture held exactly its filter's "
+             f"rows ({checks}); ledger closed, nothing pending or dropped; "
+             f"the lanes settled {out['settle_after_release_s']:.2f} s "
+             f"after the release")
+    return out
+
+
 def _compute_apps() -> list[str]:
     smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,"
                           "used_memory", "--format=csv,noheader"],
@@ -6193,6 +6732,15 @@ def main() -> int:
     card_log(f"durability launches: {durability_launches}")
     for k, n in durability_launches.items():
         launches[k] += n
+    # the egress plane and the sinks, counted the same way: two intervals
+    # of the flush path handed to example.yaml's sinks
+    for mod in _kernel_modules():
+        mod.reset_launches()
+    egress = _timed(phase_egress)
+    egress_launches = _read_launches()
+    card_log(f"egress launches: {egress_launches}")
+    for k, n in egress_launches.items():
+        launches[k] += n
     # the command line, counted on its own and added to the flush path's:
     # its flushes are the same path, driven the way users start it.  It
     # installs the crash hooks, so from here a thread that dies ends the
@@ -6244,6 +6792,7 @@ def main() -> int:
                    "meshed_flushes": meshed, "meshed_b8_b9": b8_b9,
                    "native_ingest": native, "durability": durability,
                    "durability_launches": durability_launches,
+                   "egress": egress, "egress_launches": egress_launches,
                    "cli": cli, "phase_s": PHASE_S,
                    "harness": harness}, f,
                   indent=1)

@@ -677,6 +677,7 @@ class _Pair:
         self.jsrv.flush()
         self.jsrv.egress.settle(timeout_s=10.0)
         self.tsrv.flush()
+        assert self.tsrv.egress.settle(timeout_s=10.0)
         assert self.tsrv.wait_forwards(10.0), "port forward never landed"
         return ([m for b in _drain(self.jsink) for m in b],
                 [m for b in _drain(self.tsink) for m in b])

@@ -695,8 +695,7 @@ def _fleet(local_pkg: str, global_pkg: str, lines, fwd_fields):
         assert local.forwarder.stats()["dropped"] == 0
         assert glob.grpc_import.import_errors == 0
         glob.flush()
-        if global_pkg == "jax":
-            glob.egress.settle(timeout_s=10.0)
+        assert glob.egress.settle(timeout_s=10.0)
         return [m for batch in _drain(sink) for m in batch]
     finally:
         if local is not None:

@@ -209,6 +209,7 @@ class _Pair:
             assert time.time() < deadline, "JAX forward never landed"
             time.sleep(0.01)
         self.tsrv.flush()
+        assert self.tsrv.egress.settle(timeout_s=10.0)
         assert self.tsrv.wait_forwards(10.0), "port forward never landed"
         jm = [m for batch in _drain(self.jsink) for m in batch]
         tm = [m for batch in _drain(self.tsink) for m in batch]
@@ -560,10 +561,10 @@ def _one_histogram():
 @pytest.mark.parametrize("option", [
     {"distributed_coordinator": "127.0.0.1:1"}, {"digest_float64": True},
     {"retention_tiers": [{"step": "1m", "slots": 60}]},
-    {"tags_exclude": ["host"]},
+    {"retention_dir": "retention"},
     {"sentry_dsn": "https://k@sentry.example/1"},
     {"retention_max_age": 60.0},
-    {"egress_spool_dir": "egress"}, {"flush_resident_arenas": True},
+    {"flush_delta_chunk_keys": 4}, {"flush_resident_arenas": True},
     {"grpc_listen_addresses": ["127.0.0.1:0"]}])
 def test_config_refuses_options_outside_the_port(option):
     with pytest.raises(NotImplementedError):
@@ -620,10 +621,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     port local to a port global over gRPC, then read a YAML config and
     validate it through the command line, then boot a proxy that routes
     one batch to a global and validate a proxy config through its
-    command line: no jax* and no veneur_tpu
+    command line, then import the egress plane and every metric sink
+    module and flush through a routed, tag-excluding lane beside one
+    sink of each kind: no jax* and no veneur_tpu
     module (its generated protos included, nor the JAX package's
-    scripts) may load (checked in a fresh process, since this one
-    already imported both)."""
+    scripts) may load, nor requests, urllib3, boto3 or a snappy
+    package (checked in a fresh process, since this one already
+    imported both)."""
     code = textwrap.dedent("""
         import sys
         import veneur_tpu_torch
@@ -747,10 +751,43 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         with open(path, "w") as f:
             f.write("static_destinations: [127.0.0.1:1]\\n")
         assert veneur_proxy.main(["-f", path, "-validate-config"]) == 0
+        import veneur_tpu_torch.egress
+        from veneur_tpu_torch.protocol.gen.signalfxpb import signalfx_pb2
+        from veneur_tpu_torch.sinks import (cloudwatch, cortex, datadog,
+                                            kafka, mock, newrelic,
+                                            prometheus, s3, signalfx)
+        from veneur_tpu_torch.util import awsauth, kafka_wire, snappy
+        msink = mock.MockMetricSink()
+        srv = Server(Config(
+            interval=3600.0, egress_spool_dir=tempfile.mkdtemp(),
+            tags_exclude=["n"], enable_metric_sink_routing=True,
+            metric_sink_routing=[{"name": "r", "match": [
+                {"name": {"kind": "any"}}], "sinks": {"matched": ["mock"]}}],
+            # every endpoint on the loopback (routing leaves these
+            # sinks nothing to send anyway)
+            metric_sinks=[{"kind": k, "name": k, "config": {
+                "api_hostname": "http://127.0.0.1:9",
+                "url": "http://127.0.0.1:9/push",
+                "metric_url": "http://127.0.0.1:9/metric",
+                "endpoint_base": "http://127.0.0.1:9",
+                "repeater_address": "udp://127.0.0.1:9",
+                "aws_endpoint": "http://127.0.0.1:9"}} for k in (
+                "cloudwatch", "cortex", "datadog", "kafka", "newrelic",
+                "prometheus", "s3", "signalfx")]),
+            extra_metric_sinks=[msink], device="cpu")
+        srv.start()
+        srv.process_packet_buffer(b"e.c:2|c|#n:1,k:v")
+        srv.flush()
+        assert srv.egress.settle(10.0)
+        assert [(m.name, m.tags) for m in msink.metrics] == [
+            ("e.c", ["k:v"])], msink.metrics
+        srv.shutdown()
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "veneur_tpu" or m.startswith("veneur_tpu.")
-                     or m == "scripts" or m.startswith("scripts."))
+                     or m == "scripts" or m.startswith("scripts.")
+                     or m.split(".")[0] in ("requests", "urllib3", "boto3",
+                                            "snappy"))
         print("BAD", bad)
         sys.exit(1 if bad else 0)
     """)

@@ -28,6 +28,7 @@ from typing import Any, Optional
 import yaml
 
 from veneur_tpu_torch import sinks as sink_mod
+from veneur_tpu_torch.util.matcher import Matcher, matcher_from_config
 
 
 def parse_duration(v: Any) -> float:
@@ -51,6 +52,24 @@ def parse_duration(v: Any) -> float:
     for num, unit in re.findall(r"([0-9.]+)(ns|us|µs|ms|s|m|h)", s):
         total += float(num) * units[unit]
     return total
+
+
+@dataclass
+class SinkRoutingConfig:
+    """metric_sink_routing entry (config.go:78-87)."""
+    name: str = ""
+    match: list[Matcher] = field(default_factory=list)
+    matched: list[str] = field(default_factory=list)
+    not_matched: list[str] = field(default_factory=list)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "SinkRoutingConfig":
+        sinks = d.get("sinks", {})
+        return cls(
+            name=d.get("name", ""),
+            match=[matcher_from_config(m) for m in d.get("match", [])],
+            matched=sinks.get("matched", []),
+            not_matched=sinks.get("not_matched", []))
 
 
 @dataclass
@@ -208,11 +227,18 @@ class Config:
     # plugins
     metric_sinks: list[sink_mod.SinkSpec] = field(default_factory=list)
 
-    # options outside this package: accepted at their defaults, rejected
-    # at any other value (UNSUPPORTED)
+    # the JAX package's other fields, in its order: those in UNSUPPORTED
+    # are accepted at their defaults and rejected at any other value;
+    # those marked "served" are served
     grpc_listen_addresses: list[str] = field(default_factory=list)
     ssf_listen_addresses: list[str] = field(default_factory=list)
     stats_address: str = ""
+    # the egress plane (egress/, served): sink fan-out runs on per-sink
+    # lanes with a bounded queue (egress_queue_depth intervals), a
+    # circuit breaker (egress_breaker_threshold consecutive failures
+    # trip it; cooldown egress_breaker_reset, doubling per trip),
+    # bounded retries with seeded backoff, and a durable spool under
+    # egress_spool_dir ("" drops with accounting instead)
     egress_queue_depth: int = 128
     egress_max_retries: int = 2
     egress_retry_backoff: float = 0.05
@@ -235,6 +261,8 @@ class Config:
     num_span_workers: int = 1
     trace_max_length_bytes: int = 16 * 1024 * 1024
     span_channel_capacity: int = 100
+    # served: tag keys dropped before the sinks see a flush, "key" for
+    # every sink or "key|sink1|sink2" for those sinks only
     tags_exclude: list[str] = field(default_factory=list)
     flush_watchdog_missed_flushes: int = 0
     compilation_cache_dir: str = "~/.cache/veneur-tpu-xla"
@@ -266,8 +294,11 @@ class Config:
     diagnostics_metrics_enabled: bool = False
     span_sinks: list = field(default_factory=list)
     sources: list = field(default_factory=list)
+    # served: per-metric sink allowlists from name/tag matchers
+    # (features.enable_metric_sink_routing turns them on)
     enable_metric_sink_routing: bool = False
-    metric_sink_routing: list = field(default_factory=list)
+    metric_sink_routing: list[SinkRoutingConfig] = field(
+        default_factory=list)
     veneur_metrics_scopes: dict = field(default_factory=dict)
     veneur_metrics_additional_tags: list[str] = field(default_factory=list)
 
@@ -283,6 +314,10 @@ class Config:
         self.metric_sinks = [
             s if isinstance(s, sink_mod.SinkSpec)
             else sink_mod.SinkSpec.from_dict(s) for s in self.metric_sinks]
+        self.metric_sink_routing = [
+            r if isinstance(r, SinkRoutingConfig)
+            else SinkRoutingConfig.from_dict(r)
+            for r in self.metric_sink_routing]
         for f in fields(Config):
             if f.name not in UNSUPPORTED:
                 continue
@@ -458,12 +493,6 @@ UNSUPPORTED = {
     "grpc_listen_addresses": "gRPC ingest listeners",
     "ssf_listen_addresses": _SPANS,
     "stats_address": "self-telemetry",
-    **dict.fromkeys(("egress_queue_depth", "egress_max_retries",
-                     "egress_retry_backoff", "egress_retry_seed",
-                     "egress_breaker_threshold", "egress_breaker_reset",
-                     "egress_spool_dir", "egress_spool_max_bytes",
-                     "egress_spool_max_age",
-                     "egress_spool_replay_interval"), "the egress plane"),
     **dict.fromkeys(("retention_tiers", "retention_dir",
                      "retention_max_bytes", "retention_max_age"),
                     "multi-resolution retention"),
@@ -476,7 +505,6 @@ UNSUPPORTED = {
                      "span_channel_capacity", "span_sinks",
                      "indicator_span_timer_name",
                      "objective_span_timer_name"), _SPANS),
-    "tags_exclude": "per-sink tag exclusion",
     "flush_watchdog_missed_flushes": "the flush watchdog",
     "flush_upload_chunks": "chunked flush uploads",
     # the meshed flush always places each device's blocks directly
@@ -498,8 +526,6 @@ UNSUPPORTED = {
                     "TLS listeners and forwarding"),
     "diagnostics_metrics_enabled": "self-telemetry",
     "sources": "openmetrics sources",
-    "enable_metric_sink_routing": "sink routing",
-    "metric_sink_routing": "sink routing",
     "veneur_metrics_scopes": "self-telemetry",
     "veneur_metrics_additional_tags": "self-telemetry",
 }
@@ -545,6 +571,9 @@ def _load(data: dict, strict: bool) -> Config:
         elif key in ("metric_sinks", "span_sinks"):
             setattr(cfg, key, [sink_mod.SinkSpec.from_dict(d)
                                for d in value])
+        elif key == "metric_sink_routing":
+            cfg.metric_sink_routing = [
+                SinkRoutingConfig.from_dict(d) for d in value]
         elif key in known:
             setattr(cfg, key, _coerce(key, value))
         elif strict:

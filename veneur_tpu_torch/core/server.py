@@ -7,7 +7,12 @@ listeners (SO_REUSEPORT sockets, `networking.go:54-107`) read by the
 native ingest engine's C++ readers (`native_ingest`, the default;
 `ingest/`) or by Python threads, TCP statsd listeners on Python
 threads, events and service checks (`server.go:942-993`), the interval
-flush ticker and a synchronous fan-out to the metric sinks.  With the
+flush ticker and the egress plane (`egress/`), which takes each flush's
+metrics and events to the sinks on per-sink lanes, off the flush: with
+`enable_metric_sink_routing` the flush computes each metric's sink
+allowlist first, and each lane filters by it, by its sink's limits and
+by `tags_exclude` before it delivers.  `egress.settle()` waits for the
+lanes; `shutdown()` drains them, `crash()` does not.  With the
 engine, a drainer thread folds its staged batches into the aggregator
 every `ingest_drain_interval`, and each flush drains everything the
 readers took off their sockets before it began; an engine that fails
@@ -61,6 +66,7 @@ from veneur_tpu_torch import sinks as sink_mod
 from veneur_tpu_torch.core import checkpoint as ckpt_mod
 from veneur_tpu_torch.core.aggregator import MetricAggregator
 from veneur_tpu_torch.core.arena import CheckpointIncompatible
+from veneur_tpu_torch.egress import EgressPlane
 from veneur_tpu_torch.forward.client import ForwardClient, RetryPolicy
 from veneur_tpu_torch.forward.spool import ForwardSpool
 from veneur_tpu_torch.parallel import mesh as mesh_mod
@@ -68,6 +74,7 @@ from veneur_tpu_torch.query.engine import QueryEngine
 from veneur_tpu_torch.samplers import parser as parser_mod
 from veneur_tpu_torch.samplers import samplers as sm
 from veneur_tpu_torch.sources.proxy import DedupLedger, GrpcImportServer
+from veneur_tpu_torch.util import matcher as matcher_mod
 from veneur_tpu_torch.util import tagging
 
 logger = logging.getLogger("veneur_tpu_torch.server")
@@ -194,9 +201,56 @@ class Server:
         }
         self._checkpoint_write_lock = threading.Lock()
         self._crashed = False
+        # sinks: the configured kinds, then the injected instances, each
+        # with the spec its lane filters by
+        specs = list(cfg.metric_sinks) + [
+            sink_mod.SinkSpec(kind=s.kind(), name=s.name())
+            for s in (extra_metric_sinks or [])]
         self.metric_sinks = [sink_mod.create_metric_sink(spec, cfg)
                              for spec in cfg.metric_sinks]
         self.metric_sinks.extend(extra_metric_sinks or [])
+        # tags_exclude rules: "key" (every sink) or "key|sink1|sink2"
+        # (those sinks only) — setSinkExcludedTags, server.go:660,1456-1463
+        self._tags_exclude_global: set[str] = set()
+        self._tags_exclude_by_sink: dict[str, set[str]] = {}
+        for rule in cfg.tags_exclude:
+            parts = str(rule).split("|")
+            key = parts[0]
+            if not key:
+                continue
+            if len(parts) > 1:
+                for sink_name in parts[1:]:
+                    if sink_name:
+                        self._tags_exclude_by_sink.setdefault(
+                            sink_name, set()).add(key)
+            else:
+                self._tags_exclude_global.add(key)
+        # the self-metrics client the egress lanes emit through; None is
+        # the no-op client (stats_address comes with ROADMAP A16)
+        self.statsd = None
+        # the egress plane: bounded per-sink queues and worker lanes
+        # that take the sink fan-out (filtering, serialization, HTTP,
+        # retries, spool spill) off the flush; flush() only enqueues
+        self.egress = EgressPlane(
+            interval_s=cfg.interval,
+            queue_depth=cfg.egress_queue_depth,
+            retry=RetryPolicy(
+                attempts=cfg.egress_max_retries + 1,
+                backoff_base_s=cfg.egress_retry_backoff,
+                seed=cfg.egress_retry_seed),
+            breaker_threshold=cfg.egress_breaker_threshold,
+            breaker_reset_s=cfg.egress_breaker_reset,
+            spool_dir=(os.path.expanduser(cfg.egress_spool_dir)
+                       if cfg.egress_spool_dir else ""),
+            spool_max_bytes=cfg.egress_spool_max_bytes,
+            spool_max_age_s=cfg.egress_spool_max_age,
+            spool_fsync=cfg.spool_fsync,
+            spool_replay_interval_s=cfg.egress_spool_replay_interval,
+            routing_enabled=cfg.enable_metric_sink_routing,
+            excluded_tags_for=self._excluded_tags_for,
+            statsd_fn=lambda: self.statsd)
+        for spec, sink in zip(specs, self.metric_sinks):
+            self.egress.add_metric_sink(spec, sink)
         # events accumulate between flushes (EventWorker, worker.go:491-536)
         self._events: list[parser_mod.SSFSample] = []
         self._events_lock = threading.Lock()
@@ -305,6 +359,9 @@ class Server:
                 ring_slots=cfg.ingest_ring_slots)
         for sink in self.metric_sinks:
             sink.start(None)
+        # the lanes start once the sinks have (they may replay at once
+        # what a crash left in their spools)
+        self.egress.start()
         for addr in self.config.statsd_listen_addresses:
             self._start_statsd(addr)
         if self.config.grpc_address:
@@ -478,8 +535,9 @@ class Server:
     # -- flush ---------------------------------------------------------------
 
     def flush(self):
-        """One flush interval: evaluate, fan the metrics and events out to
-        every sink, and on a local tier submit the forwardable metrics to
+        """One flush interval: evaluate, hand the metrics and events to
+        the egress plane's lanes (egress.settle() waits for their
+        delivery), and on a local tier submit the forwardable metrics to
         the forward pool (wait_forwards waits for them).  Serialized
         across callers.  Whatever a UDP reader has taken off its socket
         before the flush began is in its interval (the native engine's
@@ -495,15 +553,17 @@ class Server:
             self.flush_count += 1
             with self._events_lock:
                 events, self._events = self._events, []
-            for sink in self.metric_sinks:
-                try:
-                    sink.flush(res.metrics)
-                    if events:
-                        sink.flush_other_samples(events)
-                except Exception:
-                    logger.exception("sink %s flush failed", sink.name())
+            # sink routing (flusher.go:97-113)
+            if self.config.enable_metric_sink_routing:
+                res.metrics.apply_routing(self.config.metric_sink_routing,
+                                          matcher_mod.match)
             if self.is_local and res.forward:
                 self._submit_forward(res.forward)
+            # the sink fan-out: hand the rendered interval to the egress
+            # lanes and return; a slow or dead backend costs its own
+            # lane, never the flush
+            self.egress.submit_interval(res.metrics, events, self.statsd,
+                                        self.flush_count)
             self.last_flush = res
             if self.config.checkpoint_dir:
                 # the flush is delivered: a checkpoint older than this
@@ -515,6 +575,14 @@ class Server:
                 except OSError as e:
                     logger.warning("flush marker write failed: %s", e)
             return res
+
+    def _excluded_tags_for(self, sink_name: str):
+        """tags_exclude keys applying to this sink (global ∪ sink-scoped);
+        None when no rules are configured (fast path)."""
+        per_sink = self._tags_exclude_by_sink.get(sink_name)
+        if per_sink is None:
+            return self._tags_exclude_global or None
+        return self._tags_exclude_global | per_sink
 
     def _submit_forward(self, forward: list) -> None:
         """Run one interval's forward on the pool under a slot; with
@@ -816,11 +884,25 @@ class Server:
                         self.checkpoint_now()
                     except Exception:
                         logger.exception("shutdown checkpoint failed")
+            # the lanes drain before the forwarder and the sinks close;
+            # after crash() queued jobs die with the process and the
+            # lanes' spools keep their records for the revived server
+            try:
+                self.egress.close(drain=not self._crashed,
+                                  timeout_s=max(2.0, self.config.interval))
+            except Exception:
+                logger.exception("egress close failed")
             self._forward_pool.shutdown(wait=False)
             if self.grpc_import is not None:
                 self.grpc_import.stop()
             if isinstance(self.forwarder, ForwardClient):
                 self.forwarder.close(drain_spool=not self._crashed)
+            for sink in self.metric_sinks:
+                if hasattr(sink, "close"):
+                    try:
+                        sink.close()
+                    except Exception:
+                        logger.exception("sink close failed")
             # native.stop() joined the C++ readers above, so no reader
             # can see a closed (or recycled) fd
             for sock in self._listeners:

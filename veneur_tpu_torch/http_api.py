@@ -83,6 +83,10 @@ def make_handler(server) -> type:
             elif self.path == "/flush" and cfg.http_flush_endpoint:
                 try:
                     server.flush()
+                    # the answer follows the sinks' delivery, so that a
+                    # harness reads what the interval sent
+                    server.egress.settle(
+                        timeout_s=max(10.0, cfg.interval))
                 except Exception as e:
                     reply(self, 500, f"flush failed: {e}\n".encode())
                     return

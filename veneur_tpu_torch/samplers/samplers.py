@@ -139,14 +139,15 @@ class MetricSegment:
     `sel` selects the subset of rows this column emits for (sparse
     emission guards, `samplers/samplers.go:359-514`); None means every
     row.  `values` is aligned with `sel` (or with the full row set when
-    `sel` is None).
+    `sel` is None).  `sinks` (routing allowlists) is aligned the same
+    way when present.
     """
 
     __slots__ = ("bases", "tags", "suffix", "values", "type", "sel",
-                 "timestamp")
+                 "timestamp", "sinks")
 
     def __init__(self, bases, tags, suffix, values, type, timestamp,
-                 sel=None):
+                 sel=None, sinks=None):
         self.bases = bases
         self.tags = tags
         self.suffix = suffix
@@ -154,6 +155,7 @@ class MetricSegment:
         self.type = type
         self.timestamp = timestamp
         self.sel = sel
+        self.sinks = sinks
 
     def __len__(self) -> int:
         return len(self.values)
@@ -167,19 +169,21 @@ class MetricSegment:
         return InterMetric(
             name=base + self.suffix if self.suffix else base,
             timestamp=self.timestamp, value=float(self.values[i]),
-            tags=self.tags[r], type=self.type)
+            tags=self.tags[r], type=self.type,
+            sinks=self.sinks[i] if self.sinks is not None else None)
 
     def __iter__(self):
         bases, tags, suffix, values = (self.bases, self.tags, self.suffix,
                                        self.values)
-        ts, typ = self.timestamp, self.type
+        ts, typ, sinks = self.timestamp, self.type, self.sinks
         rows = (range(len(values)) if self.sel is None
                 else map(int, self.sel))
         for i, r in enumerate(rows):
             base = bases[r]
             yield InterMetric(
                 name=base + suffix if suffix else base, timestamp=ts,
-                value=float(values[i]), tags=tags[r], type=typ)
+                value=float(values[i]), tags=tags[r], type=typ,
+                sinks=sinks[i] if sinks is not None else None)
 
 
 class MetricBatch:
@@ -246,3 +250,27 @@ class MetricBatch:
         if isinstance(other, list):
             return list(self) == other
         return NotImplemented
+
+    def apply_routing(self, rules, match_fn) -> None:
+        """Compute per-metric sink allowlists (flusher.go:97-113) across
+        every segment row and loose metric.  `match_fn(rule.match, name,
+        tags) -> bool`; a metric's allowlist is the union of `matched`
+        lists of hitting rules plus `not_matched` of missing ones."""
+        for seg in self.segments:
+            sinks = []
+            for i in range(len(seg)):
+                r = seg.row(i)
+                name = (seg.bases[r] + seg.suffix if seg.suffix
+                        else seg.bases[r])
+                allow: set = set()
+                for rc in rules:
+                    hit = match_fn(rc.match, name, seg.tags[r])
+                    allow.update(rc.matched if hit else rc.not_matched)
+                sinks.append(allow)
+            seg.sinks = sinks
+        for m in self.loose:
+            allow = set()
+            for rc in rules:
+                hit = match_fn(rc.match, m.name, m.tags)
+                allow.update(rc.matched if hit else rc.not_matched)
+            m.sinks = allow

@@ -6,7 +6,7 @@ benchmark baseline.  channel is the test fixture sink from
 debug (`sinks/debug/debug.go`) logs everything.  jsonl appends each
 flush as JSON lines, the cross-process counterpart of channel.
 localfile (`sinks/localfile/localfile.go`) appends TSV rows
-(`util/csv.go`).
+(`util/csv.go`), with the encoder the s3 sink shares.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from veneur_tpu_torch.samplers.samplers import InterMetric
 logger = logging.getLogger("veneur_tpu_torch.sinks")
 
 
+@sink_mod.register_metric_sink("blackhole")
 class BlackholeMetricSink(sink_mod.BaseMetricSink):
     KIND = "blackhole"
 
@@ -38,6 +39,7 @@ class BlackholeMetricSink(sink_mod.BaseMetricSink):
         return sink_mod.MetricFlushResult(flushed=len(metrics))
 
 
+@sink_mod.register_metric_sink("channel")
 class ChannelMetricSink(sink_mod.BaseMetricSink):
     """Delivers each flush's InterMetric list to a queue — the in-process
     test fixture pattern (server_test.go:184-218)."""
@@ -59,6 +61,7 @@ class ChannelMetricSink(sink_mod.BaseMetricSink):
         self.other_samples.extend(samples)
 
 
+@sink_mod.register_metric_sink("debug")
 class DebugMetricSink(sink_mod.BaseMetricSink):
     """Logs every metric and every event or service check at INFO."""
 
@@ -79,6 +82,7 @@ class DebugMetricSink(sink_mod.BaseMetricSink):
             logger.info("debug sink sample: %s", s)
 
 
+@sink_mod.register_metric_sink("jsonl")
 class JsonLinesMetricSink(sink_mod.BaseMetricSink):
     """Appends each flush's metrics to `config.path` as JSON lines, then
     one `{"flush": true, "metrics": n}` frame record, so that a harness
@@ -121,6 +125,7 @@ def encode_tsv_row(m: InterMetric, hostname: str, interval_s: float,
         str(m.timestamp), repr(value), partition_date])
 
 
+@sink_mod.register_metric_sink("localfile")
 class LocalFileMetricSink(sink_mod.BaseMetricSink):
     """Appends each flush to `config.flush_file` as TSV rows."""
 
@@ -145,10 +150,3 @@ class LocalFileMetricSink(sink_mod.BaseMetricSink):
         with open(self.path, "a") as f:
             f.write(buf.getvalue())
         return sink_mod.MetricFlushResult(flushed=len(metrics))
-
-
-METRIC_SINK_TYPES = {"blackhole": BlackholeMetricSink,
-                     "channel": ChannelMetricSink,
-                     "debug": DebugMetricSink,
-                     "jsonl": JsonLinesMetricSink,
-                     "localfile": LocalFileMetricSink}
